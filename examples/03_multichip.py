@@ -1,16 +1,14 @@
-"""Multi-chip scaling demos on a virtual 8-device CPU mesh: data-parallel
-scene batches and a halo-decomposed single large cloth (SURVEY.md C15/C16).
+"""Multi-device demos: data-parallel scene batches and a halo-decomposed
+single large cloth (SURVEY.md C15/C16), on the default backend's devices.
 
-    python examples/03_multichip.py
+    python examples/03_multichip.py        # needs 8 devices, e.g.
+    XLA_FLAGS=--xla_force_host_platform_device_count=8 \
+        JAX_PLATFORMS=cpu python examples/03_multichip.py
 """
 
-import __main__  # noqa: F401  (run from repo root)
-import jax
+import os
+import sys
 
-jax.config.update("jax_platforms", "cpu")
-jax.config.update("jax_num_cpu_devices", 8)
-
-import sys, os
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import __graft_entry__ as graft
 

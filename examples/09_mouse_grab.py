@@ -3,7 +3,7 @@ vertex, and drag it along a path with kinematic pin updates — the Unity
 editor "grab the cloth with the mouse" loop, headless.
 
 ``api.raycast`` is branchless Moller-Trumbore over the deformed triangles
-(one gather per query, VPU math, one argmin — oracle-twin tested);
+(one gather per query, elementwise math, one argmin — oracle-twin tested);
 ``api.pick_vertex`` turns the hit into a vertex id for ``api.move_pins``.
 Run: python examples/09_mouse_grab.py
 """

@@ -1,6 +1,6 @@
 """Any mesh becomes a soft body: voxelize a surface mesh into a banded
-tet lattice (fused Pallas lattice kernel), simulate, and skin the original
-mesh back on — the complete Unity proxy-lattice workflow on TPU.
+tet lattice (the banded lattice path), simulate, and skin the original
+mesh back on — the complete Unity proxy-lattice workflow.
 
     python examples/20_voxel_softbody.py [out_dir] [path/to/mesh.obj]
 

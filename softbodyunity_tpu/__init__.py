@@ -1,8 +1,8 @@
-"""softbodyunity_tpu — a TPU-native soft-body simulation engine.
+"""softbodyunity_tpu — a soft-body simulation engine in JAX.
 
-A brand-new rebuild of SoftbodyUnity (/root/reference/README.md:1) as a
+A brand-new rebuild of SoftbodyUnity as a
 JAX/XLA/Pallas framework: mass-spring + XPBD cloth and volumetric soft
-bodies, plane/sphere/self collision, batched and sharded across TPU chips.
+bodies, plane/sphere/self collision, batched and sharded across devices.
 See SURVEY.md for the component map and BASELINE.json for the capability
 contract.
 """

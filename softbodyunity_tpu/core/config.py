@@ -3,7 +3,7 @@
 The reference project (SoftbodyUnity, /root/reference/README.md:1) exposes its
 tunables as Unity-Inspector-serialized public fields on a MonoBehaviour
 (stiffness, damping, dt, substeps, pinned vertices, collider refs).  The
-TPU-native rebuild replaces that with a frozen, hashable dataclass that can be
+rebuild replaces that with a frozen, hashable dataclass that can be
 passed as a *static* argument to ``jax.jit`` — the whole config is burned into
 the compiled executable, so there is zero per-step host traffic for parameters
 (BASELINE.json:5 "loaded once to HBM ... no host round-trips").
@@ -105,10 +105,9 @@ class TearParams:
         alive *= (length <= rest_length * (1 + strain_limit))
 
     Shapes stay static (the edge list never changes; liveness is a mask),
-    so tearing is jit/vmap/scan-friendly.  Grid cloth tears inside the
-    fused Pallas kernels (liveness as per-offset planes in the
-    VMEM-resident carry), on the XLA stencil twin, and on the row-sharded
-    multi-chip halo paths (planes exchanged with the state); non-grid
+    so tearing is jit/vmap/scan-friendly.  Grid cloth tears on the XLA
+    stencil path (liveness as per-offset planes) and on the row-sharded
+    multi-device halo paths (planes exchanged with the state); non-grid
     scenes take the exact jnp gather path.
     """
 
@@ -137,8 +136,8 @@ class PlasticityParams:
     ``creep`` is a per-substep rate (halve it if you double n_substeps
     for the same flow per frame).  Shapes stay static, so plasticity is
     jit/vmap/scan-friendly; grid scenes carry the scales as per-offset
-    planes through the fused Pallas kernels (or the XLA stencil twin,
-    kernels/stencil.py plastic_update_grid), irregular meshes take the
+    planes on the XLA stencil path (kernels/stencil.py
+    plastic_update_grid), irregular meshes take the
     exact jnp gather path (per-edge rest breaks the banded shared-rest
     layout).
     """
@@ -315,9 +314,9 @@ class SelfCollisionParams:
     """
 
     enabled: bool = False
-    # "block": Morton-tiled block-sparse MXU (large single scenes, 8k+);
-    # "hash": sort-based spatial hash; "dense_mxu": MXU pairwise (fastest
-    # below ~2-4k vertices/scene); "dense": O(N^2) oracle twin
+    # "block": Morton-tiled block-sparse pairs (large single scenes, 8k+);
+    # "hash": sort-based spatial hash; "dense_mxu": Gram-matrix pairwise
+    # (small scenes, batched); "dense": O(N^2) oracle twin
     method: str = "hash"
     radius: float = 0.05        # repulsion distance between non-neighbour vertices
     stiffness: float = 0.5      # positional correction factor per contact
@@ -325,13 +324,14 @@ class SelfCollisionParams:
     grid_dim: int = 64          # cells per axis (grid_dim**3 virtual cells)
     max_per_cell: int = 4       # candidate cap per neighbour cell (static shapes)
     block_partners: int = 8     # method="block": candidate-tile budget per tile
-    # method="block": vertices per Morton tile.  256 measured best at
-    # 16k-64k: 128 halves the per-pair plane work but doubles the tile
-    # count and partner-loop trips, saturates the partner budget sooner,
-    # and lost ~5% end-to-end (64k preset, v5e).  Never go below 128 —
-    # tile vertices sit on the 128 VPU lanes and a smaller minor dim
-    # idles lanes.
+    # method="block": vertices per Morton tile (a power of two >= the
+    # GPU pair kernel's launch widths, kernels/block_pairs.py)
     block_size: int = 256
+
+
+# "auto" and "stencil" run grid scenes on the stencil path; "jnp" forces
+# the general path everywhere
+BACKENDS = ("auto", "jnp", "stencil")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -361,7 +361,12 @@ class SimConfig:
     # Volume preservation for tet meshes (BASELINE.json:10): PBD-style
     # projection strength in [0,1] applied after integration when tets exist.
     volume_stiffness: float = 1.0
-    backend: str = "auto"                  # "auto" | "jnp" | "stencil" | "pallas"
+    backend: str = "auto"                  # "auto" | "jnp" | "stencil"
+
+    def __post_init__(self):
+        if self.backend not in BACKENDS:
+            raise ValueError(
+                f"unknown backend {self.backend!r}; use one of {BACKENDS}")
 
     def replace(self, **kw) -> "SimConfig":
         return dataclasses.replace(self, **kw)

@@ -5,9 +5,8 @@ Unity soft-body assets decouple the simulated proxy from the rendered
 surface: a low-resolution lattice (or cage) is simulated and a
 high-resolution ``Mesh`` is deformed to follow it each frame — the
 "per-vertex mesh mutation" render-sync layer of the reference
-(BASELINE.json:5; SURVEY.md §1a render-sync row; no reference code exists
-in the snapshot beyond /root/reference/README.md:1).  The TPU rebuild
-makes that binding explicit and device-resident:
+(BASELINE.json:5; SURVEY.md §1a render-sync row).  The rebuild makes
+that binding explicit and device-resident:
 
 * **build time (host, float64)** — :func:`embed_mesh` locates each render
   vertex in the rest-pose simulation mesh: inside its containing
@@ -20,7 +19,7 @@ makes that binding explicit and device-resident:
   sum per render vertex, jit-compiled and vmappable.  Like
   :func:`softbodyunity_tpu.solver.normals.vertex_normals` it is an
   *observable-tier* op: it runs once per rendered frame outside the
-  substep scan, so the (TPU-slow) gather is off the hot path by design.
+  substep scan, so the gather is off the hot path by design.
 
 The anchor layout is uniform across both modes — ``anchors i32[M,4]`` +
 ``weights f32[M,4]`` + ``offsets f32[M]`` — with the offset direction

@@ -6,11 +6,10 @@ distance grid that the solvers sample with trilinear interpolation
 (``oracle/reference.py`` ``_sdf_sample_grad`` is the binding sampling
 semantics; ``solver/collide.py`` mirrors it on device).
 
-Why an SDF and not exact mesh contact: on TPU, per-vertex trilinear
-sampling is 8 small gathers into a VMEM-resident grid — O(N) and
-shape-static — whereas exact vertex-triangle contact is a broad-phase +
-dynamic candidate lists, the gather/scatter pattern measured at ~1% of
-HBM bandwidth (docs/PERF.md).  Baking runs exactly once on the host
+Why an SDF and not exact mesh contact: per-vertex trilinear sampling is
+8 small gathers into a small grid — O(N) and shape-static — whereas
+exact vertex-triangle contact is a broad-phase + dynamic candidate
+lists.  Baking runs exactly once on the host
 (same contract as topology construction, BASELINE.json:5 "loaded once
 to HBM").
 

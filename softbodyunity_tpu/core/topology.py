@@ -7,7 +7,7 @@ host-side NumPy that runs exactly once; the resulting arrays are moved to HBM
 by :func:`softbodyunity_tpu.api.init` and never touched by the host again
 ("mesh topology ... is loaded once to HBM", BASELINE.json:5).
 
-TPU-first details baked in at build time:
+Details baked in at build time:
 
 * A CSR-style *incidence table* ``incident[N, D]`` / ``incident_sign[N, D]``
   so force accumulation can be a race-free per-vertex **gather** instead of a
@@ -16,8 +16,7 @@ TPU-first details baked in at build time:
 * Edge endpoints are also emitted sorted by first endpoint so a
   ``segment_sum`` fallback touches memory contiguously.
 * Optional ``grid_shape`` metadata: structured cloth grids additionally
-  support a stencil (roll/shift) force path with zero gathers — the fastest
-  formulation on TPU lanes.
+  support a stencil (shift) force path with zero gathers.
 """
 
 from __future__ import annotations
@@ -1248,10 +1247,10 @@ def lattice_from_mesh(
     the FULL bounding-box raster order — unused "ghost" vertices stay in
     the arrays with ``inv_mass = 0`` and no edges — so every tet/edge
     delta is lattice-regular and the banded machinery groups them with
-    zero residual: the shape runs the **fused Pallas lattice kernels**,
-    exactly like a cube.  (Compacting the ids would break the strides and
-    drop the whole shape to the gather path — ghosts buy back a 10-100x
-    kernel speedup for ~2x plane footprint on typical shapes.)
+    zero residual: the shape runs the **banded path**, exactly like a
+    cube.  (Compacting the ids would break the strides and drop the whole
+    shape to the gather path; ghosts cost ~2x plane footprint on typical
+    shapes.)
 
     ``resolution`` counts lattice cells across the largest extent.
     ``margin`` > 0 dilates the fill (captures thin features), < 0 erodes.
@@ -1420,7 +1419,7 @@ def from_triangle_mesh(
     * ``reorder=True`` relabels vertices by BFS over the edge graph
       (Cuthill-McKee style): physical meshes then concentrate their index
       deltas into few values, which is what lets the banded (gather-free)
-      force path cover most of the edge list on TPU (solver/banded.py).
+      force path cover most of the edge list (solver/banded.py).
       The returned topology is in the NEW vertex order;
       ``host.old_to_new`` (i64[N], None when the input order was kept)
       maps input vertex ids to the new ids — remap caller-side ids
@@ -1577,7 +1576,7 @@ def from_tet_mesh(
       oriented outward, for vertex-normal recompute / rendering;
     * ``reorder=True`` tries a BFS relabeling of the edge graph and keeps
       whichever ordering (input vs BFS) yields MORE banded (gather-free)
-      coverage on TPU — BFS rescues randomly-labeled meshes, while
+      coverage — BFS rescues randomly-labeled meshes, while
       already-well-ordered lattices keep their perfect banding (BFS
       wavefronts would fragment them; measured 1.00 -> 0.52 on a 10^3
       lattice).  Irregular leftovers take the exact gather path.  When a

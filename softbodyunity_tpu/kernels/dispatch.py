@@ -1,213 +1,38 @@
-"""Backend dispatch: route structured scenes to fast kernels.
+"""Backend dispatch: route structured grid scenes to the stencil path.
 
-Returns None when no fast path applies (caller falls back to the general
-jnp path).  A requested ``pallas`` backend that degrades to a slower path
-is reported ONCE on stderr — a mis-gated kernel regression must never hide
-behind green tests as a silent 10-100x perf cliff (tests additionally
-assert that the benchmark presets lower to a ``pallas_call``).
+:func:`maybe_fast_step` returns the stencil step (kernels/stencil.py)
+when the scene qualifies, else None, and the caller runs the general
+jnp path (solver/step.py, banded where the topology allows).
 """
 
 from __future__ import annotations
 
-import sys
 
-_warned: set = set()
+def stencil_applicable(top, cfg) -> bool:
+    """Whether the stencil path implements every feature of this scene.
 
-
-def _warn_once(key, msg):
-    if key not in _warned:
-        _warned.add(key)
-        print(f"softbodyunity_tpu: {msg}", file=sys.stderr, flush=True)
-
-
-def maybe_fast_step(top, cfg, backend):
-    from ..core.config import Solver
-
+    Off the stencil path: motion constraints (per-vertex tethers),
+    shape-matching clusters, strain limiting and pressure bodies (the
+    general path implements them), tet meshes, self-collision, and
+    meshes that are not a uniform grid."""
     if cfg.motion.enabled and top.tether_anchor is not None:
-        # motion constraints (Unity Cloth maxDistance) are per-vertex
-        # elementwise clamps implemented on the general jnp path
-        # (solver/tether.py); neither the fused kernels nor the stencil
-        # twin run them, so ANY fast path here would silently drop the
-        # tethers
-        if backend == "pallas":
-            _warn_once(
-                ("motion", top.n_vertices, cfg.solver),
-                "pallas requested but motion constraints route to the "
-                "general jnp path",
-            )
-        return None
+        return False
     if cfg.shape_match.enabled and top.n_clusters > 0:
-        # shape-matching clusters are irregular vertex subsets, so the
-        # cluster reductions always run as MXU one-hot matmuls in XLA
-        # (solver/shapematch.py) — but on banded lattices the
-        # integrate+volume stage still fuses: the HYBRID path launches
-        # the lattice kernel one substep at a time (contact gated off)
-        # and runs shape matching + contact outside, preserving the
-        # oracle's integrate -> shape-match -> collide order
-        if backend == "pallas" and top.n_tets > 0:
-            from .pallas_lattice import (
-                lattice_shapematch_applicable,
-                make_lattice_shapematch_step,
-            )
-
-            if lattice_shapematch_applicable(top, cfg):
-                return make_lattice_shapematch_step(top, cfg)
-        if backend == "pallas":
-            _warn_once(
-                ("shapematch", top.n_vertices, cfg.solver),
-                "pallas requested but shape matching routes to the "
-                "general XLA path (MXU one-hot cluster reductions)",
-            )
-        return None
+        return False
     if cfg.strain_limit.enabled:
-        # strain limiting sweeps the edge list between integration and
-        # contact: the fused Euler/Verlet/XPBD grid kernels run the
-        # sweeps VMEM-resident (kernels/pallas_substep.py
-        # _strain_limit_planes, composing with tearing/plasticity
-        # planes); everything else — lattices, over-cap grids, stencil
-        # requests — takes the banded/gather jnp path
-        # (solver/strainlimit.py).  The stencil path does NOT implement
-        # the sweeps, so it must never be the fallback here.
-        if (backend == "pallas" and top.grid_shape is not None
-                and top.grid_spacing is not None and top.n_tets == 0
-                and not cfg.self_collision.enabled):
-            try:
-                from .pallas_substep import (
-                    MAX_VMEM_VERTICES,
-                    make_pallas_step,
-                    make_pallas_verlet_step,
-                )
-
-                ny, nx = top.grid_shape
-                cap = MAX_VMEM_VERTICES // (
-                    1 + int(cfg.tear.enabled) + int(cfg.plasticity.enabled)
-                )
-                if ny * nx <= cap:
-                    if cfg.solver == Solver.XPBD:
-                        from .pallas_xpbd import make_pallas_xpbd_step
-                        return make_pallas_xpbd_step(top, cfg)
-                    if cfg.solver == Solver.VERLET:
-                        return make_pallas_verlet_step(top, cfg)
-                    return make_pallas_step(top, cfg)
-            except (ImportError, ValueError):
-                pass
-        if backend == "pallas":
-            _warn_once(
-                ("strainlimit", top.n_vertices, cfg.solver),
-                "pallas requested but strain limiting routes to the jnp "
-                "banded/gather path for this scene",
-            )
-        return None
+        return False
     if cfg.pressure.enabled and top.n_pressure_bodies > 0:
-        # pressure bodies are irregular closed shells (never grids or
-        # regular lattices in practice); the exact jnp path is the
-        # implementation — any fast path here would be a silent no-pressure
-        if backend == "pallas":
-            _warn_once(
-                ("pressure", top.n_vertices, cfg.solver),
-                "pallas requested but pressure bodies route to the jnp "
-                "gather path",
-            )
-        return None
-    if cfg.plasticity.enabled and (
-        top.grid_shape is None or top.grid_spacing is None
-        or top.n_tets > 0 or cfg.self_collision.enabled
-    ):
-        # plasticity carries per-edge rest-length scales: grid scenes run
-        # them as per-offset planes (fused Pallas kernels / XLA stencil,
-        # same plane machinery as tearing); everything else takes the
-        # exact jnp gather path
-        if backend == "pallas":
-            _warn_once(
-                ("plastic", top.n_vertices, cfg.solver),
-                "pallas requested but plasticity routes to the jnp gather "
-                "path",
-            )
-        return None
-    if cfg.tear.enabled and (
-        top.grid_shape is None or top.grid_spacing is None
-        or top.n_tets > 0 or cfg.self_collision.enabled
-    ):
-        # tearing needs per-edge liveness masks: grid scenes carry them as
-        # per-offset planes through the fused Pallas kernels (or the XLA
-        # stencil path); everything else takes the exact jnp gather path
-        if backend == "pallas":
-            _warn_once(
-                ("tear", top.n_vertices, cfg.solver),
-                "pallas requested but tearing routes to the jnp gather path",
-            )
-        return None
-    if top.n_tets > 0:
-        # volumetric lattices: fused Pallas lattice kernel (Mosaic-only —
-        # no XLA-level stencil twin; the banded jnp path is the fallback)
-        if backend == "pallas":
-            from .pallas_lattice import (
-                lattice_applicable,
-                lattice_verlet_applicable,
-                lattice_xpbd_applicable,
-                make_lattice_step,
-                make_lattice_verlet_step,
-                make_lattice_xpbd_step,
-            )
+        return False
+    if top.n_tets > 0 or cfg.self_collision.enabled:
+        return False
+    return top.grid_shape is not None and top.grid_spacing is not None
 
-            if lattice_applicable(top, cfg):
-                return make_lattice_step(top, cfg)
-            if lattice_verlet_applicable(top, cfg):
-                return make_lattice_verlet_step(top, cfg)
-            if lattice_xpbd_applicable(top, cfg):
-                return make_lattice_xpbd_step(top, cfg)
-            _warn_once(
-                ("lattice", top.n_vertices, cfg.solver),
-                f"pallas requested but the lattice kernel is not applicable "
-                f"(solver={cfg.solver.name}, n={top.n_vertices}); using the "
-                f"banded jnp path",
-            )
-        return None
-    if top.grid_shape is None or top.grid_spacing is None:
-        return None
-    if cfg.self_collision.enabled:
-        return None
-    ny, nx = top.grid_shape
-    if backend == "pallas":
-        try:
-            from .pallas_substep import (
-                MAX_VMEM_VERTICES,
-                make_pallas_step,
-                make_pallas_verlet_step,
-            )
 
-            # tearing / plasticity each carry extra per-offset planes
-            # through VMEM, each halving the whole-VMEM kernels' vertex
-            # cap; over-cap grids take the row-tiled kernels, which
-            # DMA-refresh the liveness/rest-scale planes per tile
-            cap = MAX_VMEM_VERTICES // (
-                1 + int(cfg.tear.enabled) + int(cfg.plasticity.enabled)
-            )
-            if cfg.solver == Solver.XPBD:
-                if ny * nx > cap:
-                    from .pallas_tiled import make_tiled_xpbd_step
-                    return make_tiled_xpbd_step(top, cfg)
-                from .pallas_xpbd import make_pallas_xpbd_step
-                return make_pallas_xpbd_step(top, cfg)
-            if cfg.solver == Solver.VERLET:
-                if ny * nx > cap:
-                    from .pallas_tiled import make_tiled_verlet_step
-                    return make_tiled_verlet_step(top, cfg)
-                return make_pallas_verlet_step(top, cfg)
-            if ny * nx > cap:
-                # beyond VMEM capacity: row-tiled kernel
-                from .pallas_tiled import make_tiled_step
-                return make_tiled_step(top, cfg)
-            return make_pallas_step(top, cfg)
-        except (ImportError, ValueError) as e:
-            # kernel preconditions unmet (size/collider gates)
-            _warn_once(
-                ("grid", top.grid_shape, cfg.solver, str(e)),
-                f"pallas requested but unavailable for this grid scene "
-                f"({e}); falling back to the XLA stencil path",
-            )
-            backend = "stencil"
-    if backend == "stencil":
-        from .stencil import make_stencil_step
-        return make_stencil_step(top, cfg)
-    return None
+def maybe_fast_step(top, cfg):
+    """``fn(state, dt, n_substeps) -> state`` for the stencil path, or
+    None when the scene does not qualify."""
+    if not stencil_applicable(top, cfg):
+        return None
+    from .stencil import make_stencil_step
+
+    return make_stencil_step(top, cfg)

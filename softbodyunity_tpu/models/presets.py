@@ -165,11 +165,10 @@ def cloth_batch_rl():
 
     Self-collision method: ``dense_mxu`` — the cell-quantized spatial hash
     (solver/hashgrid.py) is implemented, validated against the dense rule,
-    and selectable (method="hash"), but at 256 vertices/scene the sparse
-    path's gathers cost ~10 ms each on TPU while the MXU pairwise form is
-    microseconds and *exactly* reproduces the same physics (every pair
-    within radius; cell_size >= radius makes hash == dense — see
-    tests/test_forces.py).  The BASELINE.json:5 intent — zero host
+    and selectable (method="hash"); at 256 vertices/scene the Gram-matrix
+    pairwise form needs no sort or gather and *exactly* reproduces the
+    same physics (every pair within radius; cell_size >= radius makes
+    hash == dense — see tests/test_forces.py).  The BASELINE.json:5 intent — zero host
     round-trips inside the loop — holds for both.
     """
     cfg = SimConfig(
@@ -302,8 +301,8 @@ def cloth_strain_limited():
 @register("cloth_bench_64k")
 def cloth_bench_64k():
     """Headline benchmark scene: 256x256 = 65,536-vertex cloth
-    (BASELINE.json:5 '>=10k substeps/sec on a 64k-vertex cloth per TPU
-    core'), structural/shear/bend springs, Euler, ground plane.
+    (BASELINE.json:5), structural/shear/bend springs, Euler, ground
+    plane.
 
     Scene choice: pinned along the top row (a curtain), ground plane below
     the cloth's reach.  Corner-only pinning swings as a pendulum and a
@@ -346,7 +345,8 @@ def cloth_selfcollide_16k():
     """Large single-scene self-collision benchmark: a 128x128 = 16,384-
     vertex curtain pinned along the top, folding onto itself under gravity
     (BASELINE.json:5 'on-device spatial hashing' at scale).  Runs the
-    block-sparse Morton-tiled MXU path (solver/blocksparse.py) — the dense
+    block-sparse Morton-tiled path (solver/blocksparse.py, the GPU pair
+    kernel in kernels/block_pairs.py) — the dense
     rule is O(N^2) = 268M pairs here; block-sparse visits only bbox-
     overlapping 256-vertex tiles and is *provably* pair-set-identical when
     the partner budget holds (self_collision_block_diagnostics).
@@ -416,7 +416,7 @@ def cloth_selfcollide_64k():
 def cloth_bench_64k_xpbd():
     """XPBD variant of the headline 64k benchmark scene (BASELINE.json:9
     constraints at BASELINE.json:5 scale): distance + bending compliance,
-    8 Jacobi iterations per substep, fused Pallas XPBD kernel."""
+    8 Jacobi iterations per substep, stencil path."""
     cfg = SimConfig(
         solver=Solver.XPBD,
         xpbd=XPBDParams(
@@ -441,7 +441,7 @@ def cloth_bench_64k_xpbd():
 @register("cloth_bench_64k_verlet")
 def cloth_bench_64k_verlet():
     """Verlet variant of the headline 64k benchmark scene (BASELINE.json:5
-    'Euler / Verlet'), fused Pallas Verlet kernel.  Axial damping 0.1: the
+    'Euler / Verlet'), stencil path.  Axial damping 0.1: the
     v-estimate damper destabilizes explicit Verlet beyond ~0.2 (measured);
     global damping carries the dissipation instead."""
     cfg = SimConfig(
@@ -485,9 +485,8 @@ def softbody_cube_64k():
 def voxel_sphere_50k():
     """Voxelized-mesh soft body at benchmark scale: an icosphere baked to
     SDF and filled at resolution 45 (97k raster vertices, ~51k live, ~46%
-    frozen ghosts) — proves lattice_from_mesh shapes run the fused Pallas
-    lattice kernel at cube speed (the kernel's cost is set by the raster,
-    not the fill)."""
+    frozen ghosts) — lattice_from_mesh shapes run the banded path like a
+    cube (the cost is set by the raster, not the fill)."""
     from ..core.topology import icosphere_mesh, lattice_from_mesh
 
     cfg = SimConfig(
@@ -511,11 +510,8 @@ def jelly_voxel_50k():
     """Shape-matched VOXEL jelly at benchmark scale: the voxel_sphere_50k
     lattice (97k raster / ~51k live vertices) with spatial shape-matching
     clusters — soft springs + local shape memory, the big-jelly workload.
-    Runs the HYBRID path (kernels/pallas_lattice.py::
-    make_lattice_shapematch_step): fused lattice kernel per substep
-    (contact gated off inside) + Kronecker-factored MXU cluster
-    reductions + jnp contact, 6.3k-8.9k substeps/s on one chip
-    (run-to-run range; docs/PERF.md "Current numbers")."""
+    Runs the banded lattice path with one-hot shape-matching cluster
+    reductions (solver/shapematch.py shape_match_dx)."""
     from ..core.topology import icosphere_mesh, lattice_from_mesh
 
     cfg = SimConfig(
@@ -538,8 +534,7 @@ def jelly_voxel_50k():
 @register("softbody_cube_64k_verlet")
 def softbody_cube_64k_verlet():
     """Verlet variant of the 64k tet cube: damped position update + banded
-    volume projection + position-only contact, fused Verlet lattice
-    kernel (kernels/pallas_lattice.py make_lattice_verlet_step)."""
+    volume projection + position-only contact."""
     cfg = SimConfig(
         solver=Solver.VERLET,
         springs=SpringParams(k_structural=500.0, damping=0.5),
@@ -557,8 +552,7 @@ def softbody_cube_64k_verlet():
 @register("softbody_cube_64k_xpbd")
 def softbody_cube_64k_xpbd():
     """XPBD variant of the 64k tet cube: distance + volume compliance
-    constraints, 8 Jacobi iterations per substep, fused XPBD lattice
-    kernel (kernels/pallas_lattice.py make_lattice_xpbd_step)."""
+    constraints, 8 Jacobi iterations per substep, banded lattice path."""
     cfg = SimConfig(
         solver=Solver.XPBD,
         xpbd=XPBDParams(
@@ -586,7 +580,8 @@ def softbody_cube_xpbd_sub():
     convergence").  Same frame time as an 8-iteration config (1/60 s over
     n_substeps*dt) at the same total sweep count, but each sweep projects
     constraints at a 4x smaller dt where the linearization is tighter —
-    measured lower residual at matched work (docs/PERF.md)."""
+    measured lower residual at matched work
+    (tests/test_invariants.py)."""
     cfg = SimConfig(
         solver=Solver.XPBD,
         dt=1.0 / 60.0 / 32.0,
@@ -611,11 +606,9 @@ def softbody_cube_xpbd_sub():
 def softbody_cube_64k_xpbd_sub():
     """Substepped-XPBD variant of the 64k tet cube: 1 Jacobi iteration x
     64 substeps per frame instead of 8 iterations x 16 substeps (same
-    physical frame time, half the total sweeps).  Per-iteration
-    throughput of the fused XPBD lattice kernel equals the Euler kernel's
-    per-substep throughput (docs/PERF.md "roll-parity"), so trading
-    iterations for substeps lifts substeps/sec ~8x at BETTER constraint
-    residual per unit walltime (Macklin et al. 2019, "Small Steps")."""
+    physical frame time, half the total sweeps) — XPBD's own
+    recommendation for a better constraint residual per sweep (Macklin
+    et al. 2019, "Small Steps")."""
     cfg = SimConfig(
         solver=Solver.XPBD,
         dt=1.0 / 60.0 / 64.0,
@@ -638,9 +631,8 @@ def softbody_cube_64k_xpbd_sub():
 
 @register("cloth_bench_1m")
 def cloth_bench_1m():
-    """Scaling showcase: 1024x1024 = 1,048,576-vertex curtain (6.3M springs).
-    Runs on the row-tiled Pallas kernel (kernels/pallas_tiled.py) —
-    16x the headline scene's vertex count at near-constant Gverts/s.
+    """Scaling showcase: 1024x1024 = 1,048,576-vertex curtain (6.3M springs)
+    on the stencil path — 16x the headline scene's vertex count.
 
     dt = 1/1920 (32 substeps/frame): explicit integration needs dt to
     shrink with the spacing (half the 64k preset's spacing and mass
@@ -666,10 +658,9 @@ def cloth_bench_1m():
 
 @register("cloth_bench_262k")
 def cloth_bench_262k():
-    """512x512 = 262,144-vertex curtain — the first stop past the
-    whole-VMEM kernel's 128k cap, on the row-tiled Pallas kernel
-    (kernels/pallas_tiled.py).  dt = 1/1920: see cloth_bench_1m (same
-    spacing; the 64k dt is unstable at this resolution)."""
+    """512x512 = 262,144-vertex curtain on the stencil path.  dt = 1/1920:
+    see cloth_bench_1m (same spacing; the 64k dt is unstable at this
+    resolution)."""
     cfg = SimConfig(
         solver=Solver.SEMI_IMPLICIT_EULER,
         springs=SpringParams(k_structural=800.0, k_shear=400.0, k_bend=150.0,
@@ -692,9 +683,8 @@ def cloth_bench_262k():
 @register("cloth_tearing_64k")
 def cloth_tearing_64k():
     """64k-vertex banner that rips under its own weight (TearParams): edge
-    liveness rides as per-offset planes carried through the fused Pallas
-    kernel's VMEM-resident substep loop — 103k substeps/s on one v5e core
-    (~1000x the jnp gather path tearing would otherwise need)."""
+    liveness rides as per-offset planes through the stencil path's
+    substep loop."""
     from ..core.config import TearParams
 
     cfg = SimConfig(
@@ -715,9 +705,8 @@ def cloth_tearing_64k():
 @register("cloth_plastic_64k")
 def cloth_plastic_64k():
     """64k-vertex awning that sags permanently under load (PlasticityParams):
-    rest-length scales ride as per-offset planes through the fused Pallas
-    kernel's VMEM-resident substep loop — 77k substeps/s on one v5e core
-    (XLA stencil twin: ~44k)."""
+    rest-length scales ride as per-offset planes through the stencil
+    path's substep loop."""
     from ..core.config import PlasticityParams
 
     cfg = SimConfig(
@@ -738,11 +727,8 @@ def cloth_plastic_64k():
 
 @register("cloth_tearing_262k")
 def cloth_tearing_262k():
-    """512x512 = 262k-vertex ripping banner — past the whole-VMEM kernel's
-    (halved) tearing cap, so it runs on the row-tiled Pallas kernel
-    (kernels/pallas_tiled.py): liveness planes travel HBM->VMEM with the
-    state and tear at launch start (first-launch flag + end-of-frame tear
-    in the wrapper), reproducing the oracle mask sequence exactly."""
+    """512x512 = 262k-vertex ripping banner on the stencil path (liveness
+    planes), reproducing the oracle mask sequence exactly."""
     from ..core.config import TearParams
 
     cfg = SimConfig(
@@ -762,12 +748,9 @@ def cloth_tearing_262k():
 
 @register("cloth_plastic_262k")
 def cloth_plastic_262k():
-    """512x512 = 262k-vertex permanently-sagging banner — past the
-    whole-VMEM kernel's (halved) plasticity cap, so it runs on the
-    row-tiled Pallas kernel (kernels/pallas_tiled.py): rest-scale planes
-    travel HBM->VMEM with the state and plastic flow applies at launch
-    start (first-launch flag + end-of-frame update in the wrapper),
-    reproducing the oracle scale sequence exactly."""
+    """512x512 = 262k-vertex permanently-sagging banner on the stencil
+    path (rest-scale planes), reproducing the oracle scale sequence
+    exactly."""
     from ..core.config import PlasticityParams
 
     cfg = SimConfig(
@@ -789,8 +772,7 @@ def cloth_plastic_262k():
 @register("cloth_strain_64k")
 def cloth_strain_64k():
     """64k cloth with strain limiting (soft springs, 10% hard bound) —
-    the sweeps run VMEM-resident inside the fused Pallas kernel
-    (kernels/pallas_substep.py _strain_limit_planes)."""
+    the sweeps run on the banded jnp path (solver/strainlimit.py)."""
     from ..core.config import StrainLimitParams
 
     cfg = SimConfig(
@@ -811,8 +793,7 @@ def cloth_strain_64k():
 @register("cloth_wind_64k")
 def cloth_wind_64k():
     """64k cloth in a strong cross-wind (WindParams drag + lift): the lift
-    normals are computed as rolls inside the fused Pallas kernel every
-    substep, so full aerodynamics runs VMEM-resident."""
+    normals are computed as shifts on the stencil path every substep."""
     from ..core.config import WindParams
 
     cfg = SimConfig(

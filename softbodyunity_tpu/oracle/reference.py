@@ -8,7 +8,7 @@ soft-body frame loop — spring-force accumulation over edge lists,
 semi-implicit Euler / Verlet integration, XPBD constraint projection with
 compliance, plane/sphere collision resolve, vertex-normal recompute
 (BASELINE.json:5).  Golden trajectories generated from this module are the
-"reference trajectories"; the TPU path (f32, fused) must track them to <=1e-3
+"reference trajectories"; the device path (f32) must track them to <=1e-3
 positional drift over 1k steps (SURVEY.md C17, §4).
 
 Semantics defined here, mirrored exactly by :mod:`softbodyunity_tpu.solver`:

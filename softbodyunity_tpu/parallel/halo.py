@@ -1,12 +1,12 @@
-"""Spatial domain decomposition of one large cloth across TPU chips
+"""Spatial domain decomposition of one large cloth across devices
 (SURVEY.md C16) — the sequence/context-parallel analogue.
 
 One huge ``ny x nx`` cloth grid is sharded by *rows* over a 1-D device mesh
-with ``shard_map``.  Each substep, every chip exchanges a 2-row halo (the
-bend-spring reach) with its mesh neighbours via ``lax.ppermute`` — the same
-ring-neighbour ICI communication pattern as ring attention (SURVEY.md §5
-"Long-context / sequence parallelism") — then runs the stencil substep on
-its extended local block and keeps the interior.
+with ``shard_map``.  Each substep, every device exchanges a 2-row halo
+(the bend-spring reach) with its mesh neighbours via ``lax.ppermute`` —
+the same neighbour pattern as ring attention (SURVEY.md §5 "Long-context
+/ sequence parallelism") — then runs the stencil substep on its extended
+local block and keeps the interior.
 
 Correctness argument (tests assert equality with the single-device stencil
 path): all spring offsets point "down/right" ((0,1),(1,0),(1,1),(1,-1),
@@ -65,32 +65,21 @@ def _owned_mask_ext(ny_local: int, nx: int, ny_global: int, di: int, dj: int,
 
 def _self_collision_rows(x3, cfg, axis_name):
     """Self-collision repulsion on a row-sharded block, EXACT against the
-    global pair set: all-gather the cloth's positions over the ring (one
-    [3, ny, nx] tiled all_gather on the ICI — ~786 KB at 64k, far cheaper
-    than any partner-exchange scheme because folds make self-collision
-    pairs unbounded in ROW distance, so no fixed halo can carry them),
-    then run the dual block-sparse form — local rows as i-tiles, the
-    gathered cloth as partner tiles (solver/blocksparse.py
-    ``self_collision_forces_block_dual`` / the Pallas twin).  Pair work
+    global pair set: all-gather the cloth's positions (one [3, ny, nx]
+    tiled all_gather, ~786 KB at 64k, far cheaper than any
+    partner-exchange scheme because folds make self-collision pairs
+    unbounded in ROW distance, so no fixed halo can carry them), then run
+    the dual block-sparse form — local rows as i-tiles, the gathered
+    cloth as partner tiles (kernels/block_pairs.py).  Pair work
     shards by rows; only the Morton sort of the gathered cloth is
     replicated.  Returns forces [3, ny_local, nx]."""
     p = cfg.self_collision
     xg = jax.lax.all_gather(x3, axis_name, axis=1, tiled=True)
     xi = x3.reshape(3, -1).T                        # [n_local, 3]
     xall = xg.reshape(3, -1).T                      # [N, 3]
-    backend = cfg.backend
-    if backend == "auto":
-        backend = "pallas" if jax.default_backend() == "tpu" else "jnp"
-    if backend == "pallas":
-        from ..kernels.pallas_blocks import (
-            self_collision_forces_block_dual_pallas,
-        )
+    from ..kernels.block_pairs import self_collision_forces_block_dual
 
-        f = self_collision_forces_block_dual_pallas(xi, xall, p)
-    else:
-        from ..solver.blocksparse import self_collision_forces_block_dual
-
-        f = self_collision_forces_block_dual(xi, xall, p)
+    f = self_collision_forces_block_dual(xi, xall, p)
     return f.T.reshape(x3.shape)
 
 
@@ -164,8 +153,9 @@ def _resolve_colliders(x3, v3, movable, cfg, plane_height, spheres,
                        plane_velocity=None):
     """Velocity-level collider resolve on plane-layout blocks (the
     collider geometry is global, so sharding needs no special handling).
-    ``capsules`` [C,10] / ``boxes`` [B,18] are the packed rows the fused
-    kernels use (kinematic velocity in the tail); ``spheres`` is
+    ``capsules`` [C,10] / ``boxes`` [B,18] are packed rows
+    (solver/collide.py pack_capsules / pack_boxes; kinematic velocity in
+    the tail); ``spheres`` is
     ``(centers, radii)`` or ``(centers, radii, velocities)``; ``sdfs`` is
     ``(grids, origins, spacings[, velocities])`` from
     :func:`pack_sdf_geometry`; ``plane_velocity`` [3] is the conveyor
@@ -209,9 +199,9 @@ def _resolve_colliders(x3, v3, movable, cfg, plane_height, spheres,
     n_caps = capsules.shape[0] if capsules is not None else 0
     n_boxes = boxes.shape[0] if boxes is not None else 0
     if n_caps or n_boxes:
-        from ..kernels.pallas_substep import _resolve_capsules_boxes_smem
+        from ..solver.collide import resolve_capsules_boxes_packed
 
-        xz, vz = _resolve_capsules_boxes_smem(
+        xz, vz = resolve_capsules_boxes_packed(
             [x3[0], x3[1], x3[2]], [v3[0], v3[1], v3[2]], movable[0],
             capsules, n_caps, boxes, n_boxes,
             cfg.collision.restitution, cfg.collision.friction,
@@ -267,12 +257,12 @@ def _project_sdfs_planes(x3, movable, sdfs):
 
 def pack_capsule_box_geometry(top: Topology):
     """(capsules [C,10], boxes [B,18]) packed rows for the halo makers —
-    kinematic collider velocities ride in the row tails —
-    the same packing the fused kernels use; pass them as replicated
-    inputs, never closure constants."""
-    from ..kernels.pallas_substep import _pack_boxes, _pack_capsules
+    kinematic collider velocities ride in the row tails
+    (solver/collide.py pack_capsules / pack_boxes); pass them as
+    replicated inputs, never closure constants."""
+    from ..solver.collide import pack_boxes, pack_capsules
 
-    return _pack_capsules(top), _pack_boxes(top)
+    return pack_capsules(top), pack_boxes(top)
 
 
 def _project_capsules_boxes(x3, movable, capsules, boxes):
@@ -282,9 +272,9 @@ def _project_capsules_boxes(x3, movable, capsules, boxes):
     n_boxes = boxes.shape[0] if boxes is not None else 0
     if not (n_caps or n_boxes):
         return x3
-    from ..kernels.pallas_substep import _project_capsules_boxes_smem
+    from ..solver.collide import project_capsules_boxes_packed
 
-    xz = _project_capsules_boxes_smem(
+    xz = project_capsules_boxes_packed(
         [x3[0], x3[1], x3[2]], movable[0], capsules, n_caps, boxes, n_boxes
     )
     return jnp.stack(xz)
@@ -419,17 +409,16 @@ def _feature_halo_update(x3_new, alive, scale, offsets, cfg, axis_name):
 def _strain_limit_halo(x3, offsets, cfg, inv_mass2, ny_global, axis_name,
                        ae=None, se=None, we=None):
     """Strain-limit Jacobi sweeps on a row-sharded block (oracle
-    ``strain_limit_dx`` twin; same plane form as the fused kernel's
-    ``pallas_substep._strain_limit_planes`` with the halo exchange as the
-    shift boundary).  Each sweep re-exchanges the positions: the updated
-    owned rows become the next sweep's halo, so any number of sweeps stays
-    exact with the fixed 2-row halo (one ppermute pair per sweep over
-    ICI).  ``ae``/``se`` are the already-exchanged tear-liveness /
+    ``strain_limit_dx`` twin in plane form, with the halo exchange as
+    the shift boundary).  Each sweep re-exchanges the positions: the
+    updated owned rows become the next sweep's halo, so any number of
+    sweeps stays exact with the fixed 2-row halo (one ppermute pair per
+    sweep).  ``ae``/``se`` are the already-exchanged tear-liveness /
     plastic rest-scale planes — torn edges stop limiting, plasticity
     rescales the band (the single-device rules).  ``we`` is the exchanged
     inverse-mass halo when the caller already holds it (the XPBD substep
     does) — the halo is loop-invariant, so reusing it saves one redundant
-    ppermute pair per substep on the ICI.  Returns the total dx on the
+    ppermute pair per substep.  Returns the total dx on the
     owned rows."""
     sl = cfg.strain_limit
     ny_local, nx = x3.shape[-2], x3.shape[-1]
@@ -920,9 +909,9 @@ def _rest_friction_planes(x_new, x_start, movable, cfg, capsules, boxes,
     n_caps = capsules.shape[0] if capsules is not None else 0
     n_boxes = boxes.shape[0] if boxes is not None else 0
     if n_caps or n_boxes:
-        from ..kernels.pallas_substep import _rest_friction_smem
+        from ..solver.collide import rest_friction_packed
 
-        xz = _rest_friction_smem(
+        xz = rest_friction_packed(
             [x_new[0], x_new[1], x_new[2]],
             [x_start[0], x_start[1], x_start[2]], movable[0],
             capsules, n_caps, boxes, n_boxes, mu, dt)
@@ -1469,11 +1458,11 @@ def _shape_match_slab_statics(cid3, imb, n_clusters: int, axis_name: str):
 
 def _shape_match_slab_dx(xb, rest3, quats, statics, cfg, axis_name):
     """Per-substep shape-matching dx on a slab-sharded lattice: the
-    TPU-native multi-chip form of ``shape_match_dx``'s one-hot MXU
-    branch (same centered formulation, same HIGHEST precision — the
-    reductions feed ``x - c`` / ``g - x`` cancellations, CLAUDE.md "TPU
-    numerics"), with each [*, K]-sized cluster reduction computed as a
-    LOCAL partial + one ``lax.psum`` over the slab axis on the ICI —
+    multi-device form of ``shape_match_dx``'s one-hot matmul branch (same
+    centered formulation, same HIGHEST precision — the reductions feed
+    ``x - c`` / ``g - x`` cancellations, CLAUDE.md "Matmul precision"),
+    with each [*, K]-sized cluster reduction computed as a LOCAL partial
+    + one ``lax.psum`` over the slab axis —
     [3, K] + [9, K] floats per substep, not vertex data.  The rotation
     extraction then runs replicated on every device (psum returns
     identical moments everywhere), so the warm-start quats never need

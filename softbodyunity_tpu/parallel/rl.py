@@ -142,8 +142,7 @@ class BatchedClothEnv:
         reused across calls — pass a STABLE function object (a module-level
         fn or a held reference, with params flowing through ``obs`` or
         closure); a fresh lambda per call defeats the cache and re-compiles
-        the full scan every rollout (the repeated-large-compile pattern
-        that wedges this image's remote compile helper)."""
+        the full scan every rollout."""
         run = self._rollouts.get((policy_fn, n_frames))
         if run is None:
             if len(self._rollouts) >= 16:

@@ -1,4 +1,5 @@
-"""Multi-chip scaling: shard the scene batch across a TPU mesh (SURVEY.md C15).
+"""Multi-device scaling: shard the scene batch across a device mesh
+(SURVEY.md C15).
 
 The reference is single-threaded C# — its only "scaling" is whatever one
 Unity frame can do.  The rebuild's scaling axes (SURVEY.md §2 parallelism
@@ -7,9 +8,10 @@ checklist):
 * **data parallel** (this module): the 1024-scene batch axis
   (BASELINE.json:11) is sharded over a 1-D ``jax.sharding.Mesh``; every
   collective-free substep runs embarrassingly parallel, so the inner loop
-  generates **zero ICI traffic** — XLA compiles one SPMD program per chip.
+  moves **no data between devices** — XLA compiles one SPMD program per
+  device.
 * **spatial decomposition** (:mod:`softbodyunity_tpu.parallel.halo`): the
-  SP/CP analogue — one huge cloth split by grid rows over chips with
+  SP/CP analogue — one huge cloth split by grid rows over devices with
   ``shard_map`` + ``ppermute`` halo exchange each substep.
 
 TP/PP/EP have no analogue in a particle sim (no weight matrices, no layer

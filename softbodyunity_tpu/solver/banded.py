@@ -1,9 +1,8 @@
 """Offset-grouped ("banded") spring forces for arbitrary meshes — the
-TPU-native general edge-list path.
+general edge-list path without gathers.
 
-TPU gathers cost ~800 us per 390k-index lookup (measured; ~1% of HBM
-bandwidth), so the classic gather/scatter edge loop is 2-3 orders of
-magnitude off speed-of-light.  Observation: for any mesh with index
+The classic edge loop gathers both endpoints of every edge and scatters
+the forces back.  Observation: for any mesh with index
 locality, most edges share the same index *delta* ``b - a`` — a regular
 lattice (cloth grid, tet cube) has ~6-14 distinct deltas covering 100% of
 edges.  Group edges by delta at build time; each group becomes
@@ -12,8 +11,7 @@ edges.  Group edges by delta at build time; each group becomes
 
 — one roll in, one roll out, dense masked FMAs on ``[3, N]`` planes, zero
 gathers, zero scatters.  Wrapped roll lanes always multiply into
-mask-zeroed positions (the same annihilation argument as the Pallas grid
-kernel).  Edges whose delta group is too small fall back to the gather
+mask-zeroed positions.  Edges whose delta group is too small fall back to the gather
 path; the efficiency is ``(banded fraction) * stencil speed``.
 
 This generalizes the grid stencil (kernels/stencil.py) to ANY topology and
@@ -56,8 +54,8 @@ class OffsetGroups:
         metadata=dict(static=True), default=()
     )
     # per-group (k, rest, compliance) when constant across the group, else
-    # None — recorded host-side at build time so fused kernels can burn the
-    # scalars in statically instead of carrying [G, N] planes in VMEM
+    # None — recorded host-side at build time so the scalars can be burned
+    # in statically instead of carried as [G, N] planes
     uniform: Tuple[Optional[Tuple[float, float, float]], ...] = dataclasses.field(
         metadata=dict(static=True), default=()
     )
@@ -139,8 +137,7 @@ def banded_spring_forces(
         vb = _roll_planes(vT, -delta)
         d = xb - xT
         # sqrt+div (not rsqrt) so the jnp path matches the oracle's
-        # rounding to f64 exactness; the Pallas kernels use rsqrt for
-        # speed.  length_dir_planes keeps these EXACT ops as the compiled
+        # rounding to f64 exactness.  length_dir_planes keeps these EXACT ops as the compiled
         # primal and only swaps in grad-safe tangents (solver/forces.py).
         length, nrm = length_dir_planes(d)
         rel = jnp.sum((vb - vT) * nrm, axis=0)

@@ -1,10 +1,9 @@
-"""Block-sparse self-collision for large single scenes — MXU tiles gated by
-bounding boxes (the TPU-native answer to "spatial hash at 16k-64k verts").
+"""Block-sparse self-collision for large single scenes — dense tile pairs
+gated by bounding boxes (the answer to "spatial hash at 16k-64k verts").
 
 The sort-based hash (solver/hashgrid.py) is exact but built from
-searchsorted + per-row gathers — the op class that runs at ~1% of HBM
-bandwidth on TPU (docs/PERF.md) — and the dense MXU rule is O(N^2).  This
-path keeps the MXU formulation but makes it *block-sparse*:
+searchsorted + per-row gathers, and the dense rule is O(N^2).  This path
+keeps the dense formulation but makes it *block-sparse*:
 
 1. sort vertices by Morton (Z-order) cell id once per step — near in space
    => near in the sorted order, so 256-vertex **tiles** of the sorted
@@ -14,9 +13,10 @@ path keeps the MXU formulation but makes it *block-sparse*:
    interacting pair and are skipped; each tile keeps its ``block_partners``
    nearest candidate tiles (budget overflow is *counted and reported*, see
    :func:`self_collision_block_diagnostics`);
-4. each surviving (tile, partner) pair runs the exact dense MXU rule of
-   ``self_collision_forces_dense_mxu`` on 256x256 sub-problems (Gram
-   cancellation at ``Precision.HIGHEST`` — mandatory, see forces.py).
+4. each surviving (tile, partner) pair runs the exact dense rule on
+   256x256 sub-problems in direct per-component form (no Gram
+   cancellation).  On the GPU kernels/block_pairs.py runs this step; the
+   jnp twin here is the CPU path and the kernel's backward pass.
 
 Exactness: the bbox test is a superset filter — with sufficient
 ``block_partners`` the produced pair set is IDENTICAL to the dense rule
@@ -36,10 +36,8 @@ from ..core.config import SelfCollisionParams
 BLOCK = 256           # default vertices per tile (SelfCollisionParams.
 #                       block_size); pair work is LINEAR in the tile size
 #                       when radius << tile span (each tile has ~9 geometric
-#                       neighbours regardless), so 128 halves the VPU work —
-#                       but never go below 128: the pair planes put tile
-#                       vertices on the 128 VPU lanes, and a smaller minor
-#                       dim idles lanes and pads every vreg
+#                       neighbours regardless); the GPU kernel needs a
+#                       power of two
 _MORTON_BITS = 10     # 1024^3 virtual grid
 
 
@@ -121,15 +119,14 @@ def self_collision_forces_block(x: jax.Array, p: SelfCollisionParams) -> jax.Arr
     Oracle twin: reference.self_collision_forces (identical pair set when
     the partner budget suffices — check with
     :func:`self_collision_block_diagnostics`).  Thin wrapper over the
-    dual form with both sides the same array: the earlier per-tile-pair
-    GRAM formulation (centered, Precision.HIGHEST) lost ALL precision
-    for near-coincident pairs — at the eps-clamp scale d ~ 1e-3*radius,
-    the Gram cancellation's f32 error matches d^2 itself, and a crushed
-    pile measured 6% force error against the oracle rule while the
-    direct per-component form held 3e-6 (round 5).  The direct form
-    needs no precision escape hatch and matches the Pallas kernel's
-    math exactly; this path is the CPU/testing fallback, so its extra
-    HBM traffic vs Gram is irrelevant."""
+    dual form with both sides the same array.  A per-tile-pair GRAM
+    formulation (centered, Precision.HIGHEST) loses ALL precision for
+    near-coincident pairs — at the eps-clamp scale d ~ 1e-3*radius, the
+    Gram cancellation's f32 error matches d^2 itself; a crushed pile
+    measured 6% force error against the oracle rule while the direct
+    per-component form held 3e-6.  The direct form needs no precision
+    escape hatch and matches the GPU kernel's math (kernels/
+    block_pairs.py); this path is the CPU path and the kernel's VJP."""
     return self_collision_forces_block_dual(x, x, p)
 
 
@@ -146,7 +143,7 @@ def self_collision_forces_block_dual(
     contribution is ``w(d) * (xi - xj)``, which is exactly 0 when the two
     positions are bit-equal (w is finite by the eps clamp), so a vertex
     meeting itself in ``xall`` adds zero — same argument as the kernel
-    twin (kernels/pallas_blocks.py).  Direct dx form throughout: no Gram
+    (kernels/block_pairs.py).  Direct dx form throughout: no Gram
     cancellation, so no HIGHEST/centering requirements."""
     ni = xi.shape[0]
     xb_i, valid_i, order_i, b_i = _sorted_tiles(xi, p.cell_size,

@@ -3,7 +3,7 @@ jnp ops.
 
 The reference resolves collisions with per-vertex ``if`` tests inline in the
 substep loop ("plane/sphere collision resolve", BASELINE.json:5; capsules
-and boxes are the other two standard Unity primitive colliders).  On TPU
+and boxes are the other two standard Unity primitive colliders).  Here
 branches become ``jnp.where`` masks (SURVEY.md C8/C9); semantics mirror
 :func:`softbodyunity_tpu.oracle.reference.resolve_plane` /
 ``resolve_spheres`` / ``resolve_capsules`` / ``resolve_boxes`` /
@@ -11,8 +11,8 @@ branches become ``jnp.where`` masks (SURVEY.md C8/C9); semantics mirror
 
 Capsule/box math is written once as *component-list* primitives (``xz`` is a
 list of three same-shaped arrays), so the [N,3] general path, the
-``[3, ny, nx]`` stencil path, and the Pallas kernels (component planes with
-SMEM-scalar geometry) all run the identical formulation.
+``[3, ny, nx]`` stencil path, and the row-sharded halo path (packed
+geometry rows) all run the identical formulation.
 """
 
 from __future__ import annotations
@@ -141,8 +141,8 @@ def sdf_sample_grad_components(xz, grid, origin, spacing):
     f32[gx,gy,gz], ``origin`` length-3 scalars, ``spacing`` scalar.
     Returns (phi, [gx, gy, gz]) with phi/components shaped like xz[0].
 
-    TPU cost model: 8 gathers of one scalar plane per vertex — O(N), not
-    O(E) — into a grid that XLA keeps resident; this is the cheap
+    Cost: 8 gathers of one scalar plane per vertex — O(N), not O(E) —
+    into a small grid; this is the cheap
     formulation of mesh contact (core/sdf.py module docstring)."""
     gx, gy, gz = grid.shape
     u = [(xz[c] - origin[c]) / spacing for c in range(3)]
@@ -289,6 +289,96 @@ def _needs_capsule_box(top: Topology, cfg: SimConfig) -> bool:
     return (cfg.collision.enable_capsules and top.n_capsules > 0) or (
         cfg.collision.enable_boxes and top.n_boxes > 0
     )
+
+
+# ---------------------------------------------------------------------------
+# Packed collider rows: capsule/box geometry plus kinematic velocity as one
+# f32 row per collider, for paths that take the geometry as array inputs
+# (the row-sharded halo steps pass them replicated, never as closure
+# constants)
+# ---------------------------------------------------------------------------
+
+def _zero_vel(vel, n):
+    """Kinematic velocity rows, zeros when the topology carries none."""
+    if vel is None:
+        return jnp.zeros((n, 3), jnp.float32)
+    return vel
+
+
+def pack_capsules(top: Topology):
+    """[C, 10] rows: p0 (3), p1 (3), radius, kinematic velocity (3)."""
+    if top.n_capsules == 0:
+        return jnp.zeros((0, 10), jnp.float32)
+    return jnp.concatenate(
+        [top.capsule_p0, top.capsule_p1, top.capsule_radii[:, None],
+         _zero_vel(top.capsule_velocities, top.n_capsules)], axis=1
+    ).astype(jnp.float32)
+
+
+def pack_boxes(top: Topology):
+    """[B, 18] rows: center (3), half extents (3), R row-major (9),
+    kinematic velocity (3)."""
+    if top.n_boxes == 0:
+        return jnp.zeros((0, 18), jnp.float32)
+    return jnp.concatenate(
+        [top.box_centers, top.box_half_extents,
+         top.box_rotations.reshape(-1, 9),
+         _zero_vel(top.box_velocities, top.n_boxes)], axis=1
+    ).astype(jnp.float32)
+
+
+def _packed_capsule(cap, s):
+    return ([cap[s, c] for c in range(3)], [cap[s, 3 + c] for c in range(3)],
+            cap[s, 6], [cap[s, 7 + c] for c in range(3)])
+
+
+def _packed_box(box, s):
+    return ([box[s, c] for c in range(3)], [box[s, 3 + c] for c in range(3)],
+            [[box[s, 6 + 3 * c + i] for i in range(3)] for c in range(3)],
+            [box[s, 15 + c] for c in range(3)])
+
+
+def resolve_capsules_boxes_packed(xz, vz, movable, cap, n_capsules, box,
+                                  n_boxes, restitution, friction):
+    """Velocity-level capsule/box resolve from packed rows (the same
+    component formulation as :func:`resolve_capsules_boxes_components`)."""
+    for s in range(n_capsules):
+        p0, p1, rad, w = _packed_capsule(cap, s)
+        xz, vz = capsule_resolve_components(
+            xz, vz, movable, p0, p1, rad, restitution, friction, w=w)
+    for s in range(n_boxes):
+        ce, hf, rot, w = _packed_box(box, s)
+        xz, vz = box_resolve_components(
+            xz, vz, movable, ce, hf, rot, restitution, friction, w=w)
+    return xz, vz
+
+
+def project_capsules_boxes_packed(xz, movable, cap, n_capsules, box,
+                                  n_boxes):
+    """Position-only capsule/box push-out from packed rows."""
+    for s in range(n_capsules):
+        p0, p1, rad, _ = _packed_capsule(cap, s)
+        xz = capsule_project_components(xz, movable, p0, p1, rad)
+    for s in range(n_boxes):
+        ce, hf, rot, _ = _packed_box(box, s)
+        xz = box_project_components(xz, movable, ce, hf, rot)
+    return xz
+
+
+def rest_friction_packed(xz, xsz, movable, cap, n_capsules, box, n_boxes,
+                         mu, dt):
+    """Capsule/box position-level friction from packed rows (once per
+    substep, after the sphere friction); ``xsz`` = substep-start
+    components."""
+    for s in range(n_capsules):
+        p0, p1, rad, w = _packed_capsule(cap, s)
+        xz = capsule_friction_components(xz, xsz, movable, p0, p1, rad, w,
+                                         mu, dt)
+    for s in range(n_boxes):
+        ce, hf, rot, w = _packed_box(box, s)
+        xz = box_friction_components(xz, xsz, movable, ce, hf, rot, w, mu,
+                                     dt)
+    return xz
 
 
 def resolve_plane(x, v, plane_y, restitution, friction, movable, w=None):

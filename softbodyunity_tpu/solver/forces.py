@@ -1,13 +1,13 @@
 """Spring-force accumulation over edge lists — pure-JAX ops.
 
 Replaces the reference's per-edge C# ``for`` loop ("spring-force accumulation
-over edge lists", BASELINE.json:5) with two TPU-friendly formulations:
+over edge lists", BASELINE.json:5) with two formulations:
 
 * :func:`spring_forces_gather` — per-edge force vectors, then a race-free
   per-vertex **gather** over the precomputed incidence table
   (``Topology.incident``).  Each output row is written by exactly one
-  logical program, so the same formulation drops straight into a Pallas
-  kernel (SURVEY.md §7 "hard parts": scatter-add -> CSR gather).
+  logical program (SURVEY.md §7 "hard parts": scatter-add -> CSR
+  gather).
 * :func:`spring_forces_segment` — ``segment_sum`` fallback over the
   endpoint-sorted edge list (XLA scatter path; used as a cross-check twin).
 
@@ -171,34 +171,37 @@ def spring_forces_segment(top: Topology, x: jax.Array, v: jax.Array, cfg: SimCon
     return fa + fb
 
 
+# Precision of the two float32 products in the Gram self-collision.  The
+# |xi|^2 + |xj|^2 - 2 xi.xj cancellation turns Gram error into d^2 error
+# for close pairs, so a low-mantissa product can flip contacts or make
+# d^2 negative; PERF.md records the on-card comparison behind this value.
+GRAM_PRECISION = jax.lax.Precision.HIGHEST
+
+
+def pair_d2_gram(xc: jax.Array) -> jax.Array:
+    """Squared pair distances [N, N] of centered positions via the Gram
+    form, at :data:`GRAM_PRECISION`."""
+    sq = jnp.sum(xc * xc, axis=-1)                            # [N]
+    gram = jnp.dot(
+        xc, xc.T, preferred_element_type=jnp.float32,
+        precision=GRAM_PRECISION,
+    )
+    return sq[:, None] + sq[None, :] - 2.0 * gram
+
+
 def self_collision_forces_dense_mxu(x: jax.Array, radius: float, stiffness: float):
-    """MXU-native pairwise repulsion — the TPU-first self-collision for
-    small-per-scene-N batched workloads (BASELINE.json:11).
+    """Matmul-form pairwise repulsion for small-per-scene-N batched
+    workloads (BASELINE.json:11).
 
     Identity with the oracle rule: with w_ij = k*(r-d_ij)/d_ij over active
     pairs,  f_i = (sum_j w_ij) x_i - (W @ x)_i.  Both the Gram matrix
-    (d^2 = |xi|^2+|xj|^2-2 xi.xj) and W@x are batched matmuls that run on
-    the 128x128 systolic array; no sort, no gather — TPU gathers cost ~10ms
-    per [1024x1k] lookup while these matmuls are microseconds.  Positions
-    are centered first so the Gram cancellation stays well-conditioned in
-    f32.  Crossover vs the sort-based hash is ~2-4k vertices/scene; above
-    that use method="hash".
+    (d^2 = |xi|^2+|xj|^2-2 xi.xj) and W@x are batched matmuls; no sort,
+    no gather.  Positions are centered first so the Gram cancellation
+    stays well-conditioned in f32.  Above a few thousand vertices per
+    scene the O(N^2) planes outgrow the sparse methods ("hash", "block").
     """
     xc = x - jnp.mean(x, axis=0, keepdims=True)
-    sq = jnp.sum(xc * xc, axis=-1)                            # [N]
-    # Raised precision is load-bearing: the TPU MXU's DEFAULT single bf16
-    # pass leaves ~1e-3 absolute error in the Gram matrix, which the
-    # |xi|^2+|xj|^2 cancellation turns into garbage d^2 for close pairs ->
-    # (r-d)/d blows up -> NaN within a few frames (observed).  HIGH
-    # (3-pass bf16, ~f32-accurate) is measured sufficient — 1000-frame
-    # 256-scene TPU run settles calmly (|v| decaying, no penetration) —
-    # and is ~17% faster end-to-end than HIGHEST's 6 passes on the
-    # MXU-bound batch workload (91k vs 78k env-steps/s/chip).
-    gram = jnp.dot(
-        xc, xc.T, preferred_element_type=jnp.float32,
-        precision=jax.lax.Precision.HIGH,
-    )
-    d2 = sq[:, None] + sq[None, :] - 2.0 * gram
+    d2 = pair_d2_gram(xc)
     n_v = x.shape[0]
     eye = jnp.eye(n_v, dtype=bool)
     # cancellation floor: clamp a radius-relative epsilon, not 1e-24, so a
@@ -209,7 +212,7 @@ def self_collision_forces_dense_mxu(x: jax.Array, radius: float, stiffness: floa
     row = jnp.sum(w, axis=1)                                  # [N]
     wx = jnp.dot(
         w, xc, preferred_element_type=jnp.float32,
-        precision=jax.lax.Precision.HIGH,
+        precision=GRAM_PRECISION,
     )
     return row[:, None] * xc - wx
 

@@ -4,12 +4,12 @@ Implements BASELINE.json:5 "Self- and environment collision use on-device
 spatial hashing so no host round-trips occur inside the loop" and config
 BASELINE.json:11 (self-colliding cloth batch), i.e. SURVEY.md C12.
 
-TPU-first design (SURVEY.md §7 "spatial hashing without dynamic shapes"):
+Design (SURVEY.md §7 "spatial hashing without dynamic shapes"):
 everything is static-shaped under ``jit``:
 
 1. quantize positions to cells of a ``G^3`` virtual grid anchored at the
    on-device AABB min corner (cell edge = ``cell_size``),
-2. ``jax.lax.sort`` vertex ids by linear cell id (TPU-native bitonic sort),
+2. ``jax.lax.sort`` vertex ids by linear cell id,
 3. each vertex binary-searches (``searchsorted``) the sorted cell-id array
    for the start of each of its 27 neighbour cells and examines a fixed
    window of ``max_per_cell`` candidates, masked by run membership.

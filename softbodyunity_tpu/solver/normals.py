@@ -1,6 +1,6 @@
 """Vertex-normal recompute for rendering.
 
-TPU-native replacement for Unity's ``mesh.RecalculateNormals()``
+Device replacement for Unity's ``mesh.RecalculateNormals()``
 (BASELINE.json:5 "vertex-normal recompute for rendering"; SURVEY.md C11):
 area-weighted face normals segment-summed to vertices, then normalized.
 Runs once per *rendered frame*, outside the substep scan.

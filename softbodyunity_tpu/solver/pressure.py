@@ -2,7 +2,7 @@
 ``oracle/reference.py::pressure_forces`` (the binding semantics; see
 ``PressureParams`` and ``core.topology.enable_pressure``).
 
-TPU notes: the volume reduction is a tiny ``segment_sum`` over triangle
+Notes: the volume reduction is a tiny ``segment_sum`` over triangle
 body ids (P bodies, P is single digits) and the force scatter is the SAME
 op class as the C11 vertex-normal recompute (one 3-corner scatter-add over
 F triangles) — pressure bodies are irregular closed shells, so they live

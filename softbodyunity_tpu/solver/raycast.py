@@ -5,9 +5,9 @@ grabbing; pairs with :func:`softbodyunity_tpu.api.move_pins` for drag
 interactions).  Oracle twin: ``oracle/reference.py::raycast`` is the
 binding definition.
 
-TPU notes: one gather of the triangle corners per *query* (not per
+Notes: one gather of the triangle corners per *query* (not per
 substep — same budget class as vertex normals, solver/normals.py), then
-pure VPU elementwise math and a single argmin reduction; no
+pure elementwise math and a single argmin reduction; no
 data-dependent control flow, so the op is jit/vmap-friendly (vmap over
 the ray axis batches interaction queries for free).
 """

@@ -47,12 +47,12 @@ def _highp(fn):
     Every rigid-body contraction is tiny — 3-vectors, 3x3 inertia
     tensors, O(bodies) Python loops — but they feed cancellation-
     sensitive impulse denominators (``w + c @ Iinv @ c``) and joint
-    angle/axis projections.  At the TPU MXU's DEFAULT bf16 passes these
-    measurably diverge: the hinge motor (velocity-level clamp
-    ``-rel/w_rot``) overshot a 2.0 rad/s target to 3.8 rad/s on real
-    hardware while CPU f32 hit it exactly.  HIGHEST is free at this
-    size (the arrays never reach MXU tile shape).  CPU CI cannot catch
-    this class — see CLAUDE.md 'TPU numerics'."""
+    angle/axis projections.  At a reduced-mantissa default matmul
+    precision (TF32 on the GPU) these measurably diverge: a hinge motor
+    (velocity-level clamp ``-rel/w_rot``) overshot a 2.0 rad/s target to
+    3.8 rad/s on an accelerator while CPU f32 hit it exactly.  HIGHEST
+    is free at this size.  CPU tests cannot catch this class — see
+    CLAUDE.md "Matmul precision"."""
     @functools.wraps(fn)
     def wrapped(*args, **kwargs):
         with jax.default_matmul_precision("highest"):

@@ -4,10 +4,9 @@ semantics (``oracle/reference.py::shape_match_dx`` /
 Shape Matching" + the 2016 branchless rotation extraction).
 
 Clusters are irregular (any vertex subset), so this is a general jnp
-path: the cluster reductions are ``segment_sum`` (race-free scatter-add
-the XLA way) and everything else is elementwise VPU work — no matmuls,
-so TPU bf16 MXU passes never enter (CLAUDE.md "TPU numerics").  The
-fast grid/lattice kernels gate off loudly when shape matching is on
+path: the cluster reductions are one-hot matmuls at HIGHEST precision
+(or ``segment_sum`` above :data:`ONEHOT_MAX_ELEMS`) and everything else
+is elementwise.  The stencil path gates off when shape matching is on
 (``kernels/dispatch.py``).
 
 The shape matrix is accumulated about the CURRENT centroid,
@@ -83,34 +82,10 @@ def extract_rotations(A, quats, iterations: int):
     return q
 
 
-# above this many one-hot matrix elements (N * K f32) the dense-matmul
-# formulation's HBM traffic outgrows the gathers it replaces; fall back
-# to the segment_sum path (64 MB at the threshold)
-MXU_ONEHOT_MAX_ELEMS = 2 ** 24
-
-
-def shape_match_flat_statics(top: Topology, s_dim: int, lanes: int = 128):
-    """Fold the cluster data to the zero-padded flat raster layout the
-    fused lattice kernels use (``[S*128]`` vectors / ``[3, S*128]``
-    component rows; kernels/pallas_lattice.py ``_fold``).  Everything
-    here is loop-invariant: built once per step builder, hoisted out of
-    the substep scan by XLA.  Returns a dict consumed by
-    :func:`shape_match_dx_flat`."""
-    n = top.n_vertices
-    npad = s_dim * lanes
-    cid = jnp.pad(jnp.asarray(top.cluster_id, jnp.int32), (0, npad - n),
-                  constant_values=-1)
-    im = jnp.pad(top.inv_mass, (0, npad - n))
-    member = (cid >= 0) & (im > 0.0)
-    m = jnp.where(member, 1.0 / jnp.maximum(im, 1e-30), 0.0)
-    r3 = jnp.pad(top.cluster_rest.T.astype(jnp.float32),
-                 ((0, 0), (0, npad - n)))
-    k = int(top.n_clusters)
-    oh = (cid[:, None] == jnp.arange(k, dtype=jnp.int32)
-          ).astype(jnp.float32)
-    mass = jnp.sum(m[:, None] * oh, axis=0)
-    return dict(m=m, r3=r3, oh=oh, member=member,
-                inv_mass_k=1.0 / jnp.maximum(mass, 1e-30))
+# above this many one-hot matrix elements (N * K f32, 64 MB at the
+# threshold) the dense-matmul formulation's memory traffic outgrows the
+# gathers it replaces; fall back to the segment_sum path
+ONEHOT_MAX_ELEMS = 2 ** 24
 
 
 def _cross_rows(a, b):
@@ -192,8 +167,8 @@ def shape_match_kron_statics(top: Topology):
 
     Spatial shape-matching clusters on a ``lattice_shape`` raster factor
     as a Kronecker product of three per-axis one-hots: the [N, K]
-    one-hot matmuls of :func:`shape_match_dx_flat` (~40 MB of HBM per
-    read at 97k x 104 — the measured jelly bottleneck, docs/PERF.md)
+    one-hot matmuls of :func:`shape_match_dx` (~40 MB of device memory
+    per read at 97k x 104)
     become three tiny per-axis contractions over the ``[nx, ny, nz]``
     reshaped raster plus an [n_cells, K] occupied-cell map, with traffic
     ~= the state planes themselves.  Tracer-safe: everything here is
@@ -217,9 +192,8 @@ def shape_match_kron_statics(top: Topology):
     r3 = top.cluster_rest.T
     nx = dims[0]
     # loop-invariant (built once, hoisted out of the substep scan), so
-    # HIGHEST is free — at DEFAULT the bf16 MXU pass quantized the
-    # cluster masses to 2.3e-3 relative, which set a 1.3e-4 noise floor
-    # under every per-substep dx (measured on the real chip round 5)
+    # HIGHEST is free — a reduced-mantissa pass quantizes the cluster
+    # masses to ~2e-3 relative, a noise floor under every per-substep dx
     hp = jax.lax.Precision.HIGHEST
 
     def _reduce(u):
@@ -248,11 +222,10 @@ def shape_match_kron_statics(top: Topology):
 
 def extract_rotations_cols(A, q, iterations: int):
     """Column-layout twin of :func:`extract_rotations`: ``A f32[3, 3, K]``
-    (d, e, cluster) and ``q f32[4, K]`` with the cluster axis LAST — K
-    rides the TPU lanes, so every op in the iteration is a full-lane
-    elementwise op instead of ~60 sub-lane-width relayouts on [K, 3, 3]
-    tiles (measured in the jelly hybrid).  Identical fixed-iteration
-    recurrence to the oracle's ``extract_rotations``."""
+    (d, e, cluster) and ``q f32[4, K]`` with the cluster axis LAST, so
+    every op in the iteration is a wide elementwise op instead of many
+    small [K, 3, 3] relayouts.  Identical fixed-iteration recurrence to
+    the oracle's ``extract_rotations``."""
     for _ in range(iterations):
         w, x, y, z = q[0], q[1], q[2], q[3]
         r00 = 1 - 2 * (y * y + z * z)
@@ -288,6 +261,12 @@ def extract_rotations_cols(A, q, iterations: int):
     return q
 
 
+# Precision of the per-substep one-hot contractions of the Kronecker form
+# (the selector operand is exact 0/1 and the value operand is O(extent));
+# PERF.md records the on-card comparison behind this value.
+KRON_PRECISION = jax.lax.Precision.HIGHEST
+
+
 def shape_match_dx_kron(cfg: SimConfig, statics, x3f, quats, x0=None):
     """Raster-separable twin of :func:`shape_match_dx_flat` with the
     [N, K] one-hot contractions replaced by per-axis Kronecker factors
@@ -300,30 +279,27 @@ def shape_match_dx_kron(cfg: SimConfig, statics, x3f, quats, x0=None):
     layout (:func:`extract_rotations_cols`).  The moments are
     accumulated about the WARM global mass centroid ``x0`` — the
     previous substep's, carried through the scan (pass ``None`` to
-    bootstrap from the current positions with one VPU reduce) — and
+    bootstrap from the current positions with one reduce) — and
     recentered per cluster exactly via the loop-invariant ``s_r`` sums.
     Any reference point near the body conditions the single-pass reduce
     (the exactness of the recentering is reference-independent), so the
     one-substep lag is irrelevant; the fresh centroid comes back out of
     the SAME reduce via [K]-sized math, so the carry costs nothing.
 
-    NOTHING at absolute-position scale enters the MXU: without the
+    NOTHING at absolute-position scale enters a matmul: without the
     shift, the uncentered ``sum m x r`` reduce accumulates O(|x|·r)
     rounding that survives the exact real-arithmetic recentering —
     measured 2.3e-1 quat error at offset (100, 100.4, 100) vs 1.7e-7 at
-    the origin (round-4 advisor finding), and even the per-cluster
-    centroids contracted at absolute scale left 4.7e-4 relative error
-    in ``dx`` on the real chip (0.047 per substep — a resting jelly
-    blew up to 112x its extent within 250 frames).  The shift cancels
+    the origin, and even the per-cluster centroids contracted at
+    absolute scale left 4.7e-4 relative error in ``dx`` on an
+    accelerator (a resting jelly blew up to 112x its extent within 250
+    frames).  The shift cancels
     exactly in ``dx = s (g - x)``, so it is never added back; the
     far-from-origin twin test locks the property in.  The wide matmuls
-    contract one-hot rows at ``Precision.HIGH`` (3-pass, ~f32-accurate
-    — the selector operand is exact 0/1 and, shifted, the value operand
-    is O(extent), same argument as the batch self-collision Gram,
-    docs/PERF.md); everything feeding the ``x - c`` / ``g - x``
-    cancellations stays f32 elementwise."""
+    contract one-hot rows at :data:`KRON_PRECISION`; everything feeding
+    the ``x - c`` / ``g - x`` cancellations stays f32 elementwise."""
     sm = cfg.shape_match
-    hp = jax.lax.Precision.HIGH
+    hp = KRON_PRECISION
     nx, ny, nz = statics["dims"]
     ox, oyz = statics["ox"], statics["oyz"]
     occ_oh = statics["occ_oh"]
@@ -348,7 +324,7 @@ def shape_match_dx_kron(cfg: SimConfig, statics, x3f, quats, x0=None):
                        precision=hp)
         return g.reshape(c, n)
 
-    if x0 is None:                                   # bootstrap (VPU)
+    if x0 is None:                                   # bootstrap
         x0 = (jnp.sum(m[None] * x3f, axis=1, keepdims=True)
               * statics["inv_mass_total"])           # [3, 1]
     xr = x3f - x0
@@ -375,35 +351,6 @@ def shape_match_dx_kron(cfg: SimConfig, statics, x3f, quats, x0=None):
     return jnp.where(statics["member"][None], dx, 0.0), q.T, x0_new
 
 
-def shape_match_dx_flat(cfg: SimConfig, statics, x3f, quats):
-    """Plane-layout twin of :func:`shape_match_dx` for the fused-lattice
-    hybrid (kernels/pallas_lattice.py): operates on ``x3f f32[3, S*128]``
-    component rows — the kernel's ``[3, S, 128]`` planes bitcast flat, so
-    NO per-substep ``[N, 3]`` transposes — with the loop-invariant
-    cluster data from :func:`shape_match_flat_statics`.  Same centered
-    one-hot MXU formulation and HIGHEST precision as the vertex-layout
-    path (the reductions feed ``x - c`` / ``g - x`` cancellations —
-    CLAUDE.md "TPU numerics"); elementwise work runs on full-lane
-    ``[S*128]`` rows instead of 3-lane ``[N, 3]`` columns.  Returns
-    ``(dx f32[3, S*128], quats' f32[K, 4])``."""
-    sm = cfg.shape_match
-    hp = jax.lax.Precision.HIGHEST
-    m, r3, oh = statics["m"], statics["r3"], statics["oh"]
-    wx = m[None] * x3f
-    cx = jnp.einsum("dn,nk->dk", wx, oh, precision=hp)
-    c = cx * statics["inv_mass_k"][None]
-    cb = jnp.einsum("dk,nk->dn", c, oh, precision=hp)        # c[cid]
-    xc = x3f - cb
-    p9 = (m[None] * xc)[:, None, :] * r3[None, :, :]         # [d, e, n]
-    A = jnp.einsum("den,nk->kde", p9, oh, precision=hp)
-    quats = extract_rotations(A, quats, sm.iterations)
-    qn = jnp.einsum("kq,nk->qn", quats, oh, precision=hp)    # quats[cid]
-    qw, qv = qn[0:1], qn[1:]
-    g = r3 + 2.0 * _cross_rows(qv, _cross_rows(qv, r3) + qw * r3) + cb
-    dx = sm.stiffness * (g - x3f)
-    return jnp.where(statics["member"][None], dx, 0.0), quats
-
-
 def shape_match_dx(top: Topology, cfg: SimConfig, x, quats):
     """Per-substep shape-matching position correction (oracle
     ``shape_match_dx`` twin): per cluster, current mass centroid ``c``,
@@ -414,16 +361,15 @@ def shape_match_dx(top: Topology, cfg: SimConfig, x, quats):
     construction in ``enable_shape_matching``).  Returns
     ``(dx f32[N, 3], quats' f32[K, 4])``.
 
-    TPU formulation: the per-cluster reductions and the broadcast-back
-    are expressed through a mass-weighted one-hot membership matrix
-    ``W f32[N, K]`` — ``[K, N] @ [N, d]`` MXU matmuls replace
-    segment_sum scatters, and ``onehot @ per_cluster`` replaces the
-    ``[cid]`` gathers (TPU gathers run at ~1% of HBM bandwidth,
-    docs/PERF.md).  HIGHEST matmul precision: the A-matrix and centroid
-    feed cancellations (``x - c[cid]``, ``g - x``) — bf16 MXU passes
-    corrupt those (CLAUDE.md "TPU numerics").  Equal to the oracle in
+    Formulation: the per-cluster reductions and the broadcast-back are
+    expressed through a mass-weighted one-hot membership matrix
+    ``W f32[N, K]`` — ``[K, N] @ [N, d]`` matmuls replace segment_sum
+    scatters, and ``onehot @ per_cluster`` replaces the ``[cid]``
+    gathers.  HIGHEST matmul precision: the A-matrix and centroid feed
+    cancellations (``x - c[cid]``, ``g - x``) — reduced-mantissa
+    products corrupt those (CLAUDE.md "Matmul precision").  Equal to the oracle in
     real arithmetic; reduction ORDER differs only by f32/f64 rounding.
-    Scenes with ``N * K`` beyond ``MXU_ONEHOT_MAX_ELEMS`` take the
+    Scenes with ``N * K`` beyond ``ONEHOT_MAX_ELEMS`` take the
     segment_sum path instead."""
     sm = cfg.shape_match
     k = int(top.n_clusters)
@@ -431,7 +377,7 @@ def shape_match_dx(top: Topology, cfg: SimConfig, x, quats):
     member = (cid_raw >= 0) & (top.inv_mass > 0.0)
     m = jnp.where(member, 1.0 / jnp.maximum(top.inv_mass, 1e-30), 0.0)
     r = top.cluster_rest
-    if x.shape[0] * k <= MXU_ONEHOT_MAX_ELEMS:
+    if x.shape[0] * k <= ONEHOT_MAX_ELEMS:
         hp = jax.lax.Precision.HIGHEST
         # cid == arange(K) never matches -1, so non-members drop out of
         # the plain one-hot too (used for the broadcast-backs)

@@ -102,18 +102,9 @@ def self_collision_force(cfg: SimConfig, x):
             x, cfg.self_collision.radius, cfg.self_collision.stiffness
         )
     if cfg.self_collision.method == "block":
-        backend = cfg.backend
-        if backend == "auto":
-            backend = "pallas" if jax.default_backend() == "tpu" else "jnp"
-        if backend == "pallas":
-            from ..kernels.pallas_blocks import (
-                self_collision_forces_block_pallas,
-            )
+        from ..kernels.block_pairs import self_collision_forces_block
 
-            return self_collision_forces_block_pallas(x, cfg.self_collision)
-        from . import blocksparse
-
-        return blocksparse.self_collision_forces_block(x, cfg.self_collision)
+        return self_collision_forces_block(x, cfg.self_collision)
     if cfg.self_collision.method != "hash":
         # a typo ("dense-mxu") silently running the hash path would be a
         # different perf class AND a soft-truncated pair set with no error
@@ -242,9 +233,7 @@ def verlet_integrate(top: Topology, cfg: SimConfig, s: State, dt: float,
 def verlet_contact_project(top: Topology, cfg: SimConfig, x_new, x_old,
                            dt: float, movable):
     """The Verlet substep's position-level contact chain (pre-clamp
-    record, projection, plane/sphere/capsule-box friction) — shared with
-    the hybrid lattice shape-matching path
-    (kernels/pallas_lattice.py::make_lattice_shapematch_step)."""
+    record, projection, plane/sphere/capsule-box friction)."""
     contact = collide.plane_contact_preclamp(top, cfg, x_new, movable)
     x_new = collide.project_positions_only(top, cfg, x_new, movable)
     x_new = collide.plane_friction_positions(top, cfg, x_new, x_old, dt,

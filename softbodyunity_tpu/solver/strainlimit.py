@@ -7,8 +7,7 @@ Two formulations, equal in real arithmetic:
 * **banded** (``_strain_limit_dx_banded``): when the topology's offset
   groups cover EVERY edge (grids, lattices, BFS-relabelled meshes), each
   Jacobi sweep is one roll-pair + dense masked FMAs per delta group on
-  ``[3, N]`` planes — zero gathers (TPU gathers run at ~1% of HBM
-  bandwidth, docs/PERF.md).  Same transformation as
+  ``[3, N]`` planes — zero gathers.  Same transformation as
   ``banded.xpbd_iteration_banded``.
 * **gather** fallback: any edge list; also taken when tearing or
   plasticity is active (per-edge alive/rest-scale state has no plane

@@ -3,10 +3,10 @@ semantics (``oracle/reference.py::tether_dx``; the Unity Cloth
 ``maxDistance`` coefficient, set by ``core.topology.set_motion_constraints``
 and animated with ``api.move_tethers``).
 
-Pure per-vertex elementwise VPU work (one norm + clamp per vertex): no
-gathers, no matmuls, batched/sharded for free.  The fast grid/lattice
-kernels gate off loudly when motion constraints are enabled
-(``kernels/dispatch.py``) — the general jnp path is the implementation.
+Pure per-vertex elementwise work (one norm + clamp per vertex): no
+gathers, no matmuls, batched/sharded for free.  The stencil path gates
+off when motion constraints are enabled (``kernels/dispatch.py``) — the
+general jnp path is the implementation.
 """
 
 from __future__ import annotations

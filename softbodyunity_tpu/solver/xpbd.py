@@ -7,7 +7,7 @@ constraint (BASELINE.json:10) as pure-JAX ops, mirroring
 ``volume_projection``.
 
 Jacobi projection is chosen over Gauss-Seidel because it is embarrassingly
-parallel — the TPU-native trade (SURVEY.md §7): per-constraint corrections
+parallel (SURVEY.md §7): per-constraint corrections
 are computed independently, segment-summed per vertex, count-averaged, and
 applied with an under-relaxation factor; convergence is bought with many
 cheap substeps, XPBD's own recommendation.

@@ -2,7 +2,7 @@
 
 The reference hands state to Unity every frame via ``mesh.vertices =
 positions; mesh.RecalculateNormals()`` ("C# per-vertex mesh mutation",
-BASELINE.json:5).  The TPU rebuild's equivalent is a single device->host
+BASELINE.json:5).  The rebuild's equivalent is a single device->host
 fetch per *rendered* frame (positions + normals computed on device), plus
 exporters for offline viewing:
 

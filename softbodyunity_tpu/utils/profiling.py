@@ -31,9 +31,13 @@ from ..solver import step as _step_mod
 
 
 @contextlib.contextmanager
-def trace(log_dir: str = "/tmp/softbodyunity_tpu_trace"):
+def trace(log_dir: str | None = None):
     """Profile a region: ``with trace(dir): run(...)`` then load the dir in
-    TensorBoard / xprof."""
+    TensorBoard / xprof.  Default: ``.tmp/trace`` in this checkout."""
+    if log_dir is None:
+        from .cache import CHECKOUT
+
+        log_dir = str(CHECKOUT / ".tmp" / "trace")
     with jax.profiler.trace(log_dir):
         yield log_dir
 

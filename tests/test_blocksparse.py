@@ -142,22 +142,151 @@ def test_block_matches_dense_16k_folded():
     )
 
 
+def _cloud(n, seed=None):
+    rng = np.random.default_rng(n if seed is None else seed)
+    return jnp.asarray(rng.uniform(0, 0.5, (n, 3)).astype(np.float32))
+
+
+# the GPU pair kernel (kernels/block_pairs.py) in interpret mode; 500 is
+# not a multiple of the 256-vertex tile, 2048 is
 @pytest.mark.parametrize("n", [500, 2048])
 def test_block_pallas_matches_jnp_twin(n):
-    from softbodyunity_tpu.kernels.pallas_blocks import (
-        self_collision_forces_block_pallas,
-    )
+    from softbodyunity_tpu.kernels.block_pairs import forces_block_kernel
 
-    rng = np.random.default_rng(n)
-    x = jnp.asarray(rng.uniform(0, 0.5, (n, 3)).astype(np.float32))
+    x = _cloud(n)
     p = _params(block_partners=min(8, -(-n // BLOCK)))
     f_jnp = self_collision_forces_block(x, p)
-    f_pal = self_collision_forces_block_pallas(x, p, interpret=True)
-    # contraction layouts differ (einsum bij vs dot_general) => rounding-
-    # level deviation only; the dense-parity tests hold both at 5e-4
+    f_pal = forces_block_kernel(x, p, True)
     np.testing.assert_allclose(
         np.asarray(f_pal), np.asarray(f_jnp), atol=5e-4, rtol=1e-3
     )
+
+
+@pytest.mark.parametrize("n,blk", [(300, BLOCK), (1000, BLOCK),
+                                   (1024, 128), (1000, 128)])
+def test_block_pallas_matches_dense(n, blk):
+    from softbodyunity_tpu.kernels.block_pairs import forces_block_kernel
+
+    x = _cloud(n)
+    p = _params(block_partners=-(-n // blk), block_size=blk)
+    assert int(self_collision_block_diagnostics(x, p)["dropped_pairs"]) == 0
+    f_pal = forces_block_kernel(x, p, True)
+    f_dns = self_collision_forces_dense(x, p.radius, p.stiffness)
+    np.testing.assert_allclose(
+        np.asarray(f_pal), np.asarray(f_dns), atol=5e-4, rtol=1e-4
+    )
+
+
+@pytest.mark.parametrize("n,split", [(500, 3), (2048, 4)])
+def test_block_pallas_dual_matches_twin(n, split):
+    from softbodyunity_tpu.kernels.block_pairs import forces_block_dual_kernel
+    from softbodyunity_tpu.solver.blocksparse import (
+        self_collision_forces_block_dual)
+
+    x = _cloud(n)
+    p = _params(block_partners=-(-n // BLOCK))
+    for part in range(split):                 # each device's row block
+        xi = x[part * n // split:(part + 1) * n // split]
+        f_twin = self_collision_forces_block_dual(xi, x, p)
+        f_pal = forces_block_dual_kernel(xi, x, p, True)
+        np.testing.assert_allclose(
+            np.asarray(f_pal), np.asarray(f_twin), atol=5e-4, rtol=1e-3
+        )
+
+
+def test_block_pallas_tiles_without_partners():
+    """A tile whose partner count is 0 gets exactly zero force; the
+    others are untouched."""
+    from softbodyunity_tpu.kernels import block_pairs
+
+    x = _cloud(1024)
+    p = _params(block_partners=4)
+    xt, _, nvalid, partners, _ = block_pairs._tiles_and_partners(x, x, p)
+    kw = dict(radius=p.radius, stiffness=p.stiffness, interpret=True)
+    full = block_pairs.block_pairs(xt, xt, nvalid, partners, **kw)
+    cut = nvalid.at[1].set(0).at[3].set(0)
+    part = block_pairs.block_pairs(xt, xt, cut, partners, **kw)
+    assert float(jnp.abs(full[1]).max()) > 0.0
+    np.testing.assert_array_equal(np.asarray(part[1]), 0.0)
+    np.testing.assert_array_equal(np.asarray(part[3]), 0.0)
+    np.testing.assert_array_equal(np.asarray(part[0]), np.asarray(full[0]))
+    np.testing.assert_array_equal(np.asarray(part[2]), np.asarray(full[2]))
+
+
+@pytest.mark.parametrize("form", ["single", "dual"])
+def test_block_pallas_grad_matches_twin(form):
+    """``jax.grad`` through the kernel runs the twin's VJP."""
+    from softbodyunity_tpu.kernels import block_pairs
+    from softbodyunity_tpu.solver.blocksparse import (
+        self_collision_forces_block_dual)
+
+    x = _cloud(600)
+    p = _params(block_partners=3)
+    w = jnp.asarray(np.random.default_rng(1).normal(size=(600, 3)),
+                    jnp.float32)
+    if form == "single":
+        kern = lambda y: block_pairs.forces_block_kernel(y, p, True)
+        twin = lambda y: self_collision_forces_block(y, p)
+    else:
+        kern = lambda y: block_pairs.forces_block_dual_kernel(
+            y[:200], y, p, True)
+        twin = lambda y: self_collision_forces_block_dual(y[:200], y, p)
+    g_k = jax.grad(lambda y: jnp.sum(kern(y) * w[:kern(y).shape[0]]))(x)
+    g_t = jax.grad(lambda y: jnp.sum(twin(y) * w[:twin(y).shape[0]]))(x)
+    assert float(jnp.abs(g_t).max()) > 0.0
+    np.testing.assert_allclose(np.asarray(g_k), np.asarray(g_t),
+                               atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("rows,cols", [(16, 256), (64, 64), (32, 128)])
+def test_block_kernel_lowers_for_cuda(rows, cols):
+    """The kernel lowers through the Triton route for the card (the
+    lowering runs here; only compiling the Triton IR needs the GPU)."""
+    from softbodyunity_tpu.kernels import block_pairs
+
+    x = _cloud(1024)
+    p = _params(block_partners=4)
+    xt, _, nvalid, partners, _ = block_pairs._tiles_and_partners(x, x, p)
+    fn = jax.jit(lambda a, b, c: block_pairs.block_pairs(
+        a, a, b, c, radius=p.radius, stiffness=p.stiffness, rows=rows,
+        cols=cols))
+    text = fn.trace(xt, nvalid, partners).lower(
+        lowering_platforms=("cuda",)).as_text()
+    assert "self_collision_block_pairs" in text
+
+
+@pytest.mark.parametrize("rows,cols", [(16, 256), (32, 128), (64, 64)])
+def test_block_pallas_launch_shapes_agree(rows, cols):
+    """Every launch shape of the sweep computes the same forces."""
+    from softbodyunity_tpu.kernels import block_pairs
+
+    x = _cloud(1024)
+    p = _params(block_partners=4)
+    xt, _, nvalid, partners, _ = block_pairs._tiles_and_partners(x, x, p)
+    kw = dict(radius=p.radius, stiffness=p.stiffness, interpret=True)
+    ref = block_pairs.block_pairs(xt, xt, nvalid, partners, **kw)
+    got = block_pairs.block_pairs(xt, xt, nvalid, partners, rows=rows,
+                                  cols=cols, **kw)
+    np.testing.assert_allclose(np.asarray(got), np.asarray(ref), atol=1e-5)
+
+
+def test_block_pallas_rejects_odd_block_size():
+    from softbodyunity_tpu.kernels.block_pairs import forces_block_kernel
+
+    p = _params(block_partners=2, block_size=96)
+    with pytest.raises(ValueError, match="power of two"):
+        forces_block_kernel(_cloud(300), p, True)
+
+
+def test_block_kernel_compiled_on_gpu(gpu):
+    """The compiled kernel (no interpret mode) against the twin."""
+    from softbodyunity_tpu.kernels.block_pairs import forces_block_kernel
+
+    x = _cloud(2048)
+    p = _params(block_partners=8)
+    np.testing.assert_allclose(
+        np.asarray(forces_block_kernel(x, p)),
+        np.asarray(self_collision_forces_block(x, p)), atol=5e-4, rtol=1e-3)
 
 
 def test_64k_preset_builds_and_steps():

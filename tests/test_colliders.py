@@ -31,7 +31,7 @@ def _rot_z(deg):
 def _scene(solver, *, rot_deg=30.0, origin_y=0.25, nx=12, ny=12):
     """Cloth falling onto a capsule and a tilted box (plane far below so
     contact is capsule/box-driven).  ``origin_y=0.05`` starts the cloth
-    INSIDE the collider band so short kernel-twin runs exercise contact."""
+    INSIDE the collider band so short runs exercise contact."""
     cfg = SimConfig(
         solver=solver,
         collision=CollisionParams(
@@ -174,37 +174,6 @@ def test_batched_capsule_box_consistency():
         )
 
 
-@pytest.mark.parametrize("solver", SOLVERS)
-def test_fused_kernel_matches_stencil_interpret(solver):
-    """The fused Pallas kernels resolve capsules/boxes via SMEM geometry;
-    interpret-mode twin equality vs the stencil path (both run the same
-    solver/collide.py component formulation for capsule/box)."""
-    from softbodyunity_tpu.kernels.pallas_substep import (
-        make_pallas_step,
-        make_pallas_verlet_step,
-    )
-    from softbodyunity_tpu.kernels.pallas_xpbd import make_pallas_xpbd_step
-    from softbodyunity_tpu.kernels.stencil import make_stencil_step
-
-    host, cfg = _scene(solver, origin_y=0.05)   # starts in contact
-    top, state = api.init(host)
-    maker = {
-        Solver.SEMI_IMPLICIT_EULER: make_pallas_step,
-        Solver.VERLET: make_pallas_verlet_step,
-        Solver.XPBD: make_pallas_xpbd_step,
-    }[solver]
-    pal = maker(top, cfg, interpret=True)
-    ref = jax.jit(lambda t, s: make_stencil_step(t, cfg)(s, cfg.dt, 48))
-    s_ref = ref(top, state)
-    s_pal = pal(state, cfg.dt, 48)
-    # contact actually happened: some vertex was pushed up by the capsule
-    assert np.asarray(s_ref.x)[:, 1].max() > 0.06
-    # rsqrt-vs-sqrt spring rounding amplified by capsule/box contact chaos
-    np.testing.assert_allclose(
-        np.asarray(s_pal.x), np.asarray(s_ref.x), atol=5e-5
-    )
-
-
 def _cube_scene(solver):
     """Tet cube dropped onto a capsule + tilted box."""
     from softbodyunity_tpu.core.topology import tet_cube
@@ -232,69 +201,29 @@ def _cube_scene(solver):
     return host, cfg
 
 
-@pytest.mark.parametrize(
-    "solver", [Solver.SEMI_IMPLICIT_EULER, Solver.XPBD]
-)
-def test_lattice_kernel_capsule_box_interpret(solver):
-    """The fused lattice kernels resolve capsules/boxes (SMEM geometry);
-    interpret-mode twin equality vs the banded jnp path on a cube dropped
-    onto a capsule + tilted box."""
-    from softbodyunity_tpu.kernels.pallas_lattice import (
-        lattice_applicable,
-        lattice_xpbd_applicable,
-        make_lattice_step,
-        make_lattice_xpbd_step,
-    )
-    from softbodyunity_tpu.solver.step import step_scan
+# scenes that start in contact, on the path that serves each: the
+# stencil for the 12- and 16-row grids, the banded jnp path for the cube
+SERVED = ([("grid", 12, sv) for sv in SOLVERS]
+          + [("grid", 16, sv) for sv in SOLVERS]
+          + [("cube", 5, Solver.SEMI_IMPLICIT_EULER),
+             ("cube", 5, Solver.XPBD)])
 
-    host, cfg = _cube_scene(solver)
-    top, state = api.init(host)
-    if solver == Solver.XPBD:
-        assert lattice_xpbd_applicable(top, cfg)
-        pal = make_lattice_xpbd_step(top, cfg, interpret=True)
+
+@pytest.mark.parametrize("kind,ny,solver", SERVED)
+def test_in_contact_matches_oracle(f64_oracle_run, kind, ny, solver):
+    from softbodyunity_tpu.kernels import dispatch
+
+    if kind == "cube":
+        host, cfg = _cube_scene(solver)
     else:
-        assert lattice_applicable(top, cfg)
-        pal = make_lattice_step(top, cfg, interpret=True)
-    ref = jax.jit(lambda t, s: step_scan(t, cfg, s, cfg.dt, 48))
-    s_ref = ref(top, state)
-    s_pal = pal(state, cfg.dt, 48)
-    # contact actually happened: the cube straddles the colliders at t=0,
-    # so the capsule/box projection moved vertices immediately
-    assert np.abs(np.asarray(s_ref.x)[:, 1] - np.asarray(state.x)[:, 1]).max() > 1e-3
-    np.testing.assert_allclose(
-        np.asarray(s_pal.x), np.asarray(s_ref.x), atol=5e-5
-    )
-
-
-@pytest.mark.parametrize("solver", SOLVERS)
-def test_tiled_kernel_capsule_box_interpret(solver):
-    """Row-tiled kernels (>VMEM grids) resolve capsules/boxes too —
-    twin equality vs the untiled/stencil paths on a contact-laden scene."""
-    from softbodyunity_tpu.kernels.pallas_tiled import (
-        make_tiled_step,
-        make_tiled_verlet_step,
-        make_tiled_xpbd_step,
-    )
-    from softbodyunity_tpu.kernels.stencil import make_stencil_step
-
-    # ny=16 divides into 8-row tiles (the tiled kernels' alignment gate)
-    host, cfg = _scene(solver, origin_y=0.05, ny=16)   # starts in contact
-    top, state = api.init(host)
-    maker = {
-        Solver.SEMI_IMPLICIT_EULER: make_tiled_step,
-        Solver.VERLET: make_tiled_verlet_step,
-        Solver.XPBD: make_tiled_xpbd_step,
-    }[solver]
-    # XPBD's halo = spring-reach x n_iterations rounded to 8 => tile >= 16
-    tiled = maker(top, cfg, tile=16 if solver == Solver.XPBD else 8,
-                  interpret=True)
-    ref = jax.jit(lambda t, s: make_stencil_step(t, cfg)(s, cfg.dt, 32))
-    s_ref = ref(top, state)
-    s_t = tiled(state, cfg.dt, 32)
-    assert np.asarray(s_ref.x)[:, 1].max() > 0.06  # contact happened
-    np.testing.assert_allclose(
-        np.asarray(s_t.x), np.asarray(s_ref.x), atol=5e-5
-    )
+        host, cfg = _scene(solver, origin_y=0.05, ny=ny)
+    top, _ = api.init(host)
+    assert (dispatch.maybe_fast_step(top, cfg) is None) == (kind == "cube")
+    s, x, _ = f64_oracle_run(host, cfg, 3)
+    # contact actually happened: the colliders moved vertices up
+    assert (x[:, 1] - host.positions0[:, 1]).max() > 1e-3
+    drift = np.max(np.abs(np.asarray(s.x) - x))
+    assert drift < 1e-8, f"{kind} {ny} {solver}: f64 drift {drift:.3e}"
 
 
 def test_batched_hetero_capsules_boxes():

@@ -54,7 +54,7 @@ def test_dense_self_collision_matches_oracle(rng):
 
 
 def test_dense_mxu_matches_dense(rng):
-    """The MXU (Gram-matrix) formulation equals the direct dense rule."""
+    """The Gram-matrix formulation equals the direct dense rule."""
     x = rng.uniform(0.0, 0.5, size=(100, 3)).astype(np.float32) + 3.0  # offset origin
     xj = jnp.asarray(x)
     f_mxu = forces.self_collision_forces_dense_mxu(xj, 0.06, 5.0)
@@ -121,12 +121,13 @@ def test_volume_projection_matches_oracle(rng):
     np.testing.assert_allclose(np.asarray(dx), dx_ref, atol=1e-5)
 
 
-@pytest.mark.tpu
-def test_dense_mxu_stable_long_horizon_tpu():
-    """TPU-only regression (run manually: pytest -m tpu on a TPU host,
-    without the conftest CPU forcing): the MXU's default-bf16 Gram matmul
-    made close-pair distances garbage and the batch exploded to NaN within
-    8 frames; Precision.HIGHEST keeps 60 frames finite."""
+def test_dense_mxu_stable_long_horizon():
+    """The Gram self-collision batch stays finite for 60 frames at the
+    program's own matmul precision (solver/forces.py GRAM_PRECISION): a
+    low-mantissa Gram product turns close-pair distances into garbage and
+    the batch explodes to NaN within a few frames.  On the CPU every f32
+    product is exact; ``python chip_smoke.py`` runs the 1024-scene batch
+    on the card."""
     from softbodyunity_tpu.parallel import batch
 
     host, cfg = presets.build("cloth_batch_rl")
@@ -211,3 +212,14 @@ def test_unknown_self_collision_method_raises():
         enabled=True, method="dense-mxu"))  # typo for dense_mxu
     with pytest.raises(ValueError, match="unknown self-collision method"):
         self_collision_force(cfg, jnp.zeros((8, 3)))
+
+
+def test_gram_products_ask_for_highest():
+    """The Gram self-collision's two products run at HIGHEST: at HIGH the
+    GPU may use TF32, whose error feeds the d^2 cancellation (PERF.md)."""
+    x = jnp.zeros((16, 3), jnp.float32)
+    jaxpr = str(jax.make_jaxpr(
+        lambda y: forces.self_collision_forces_dense_mxu(y, 0.1, 1.0))(x))
+    assert jaxpr.count("dot_general") == 2
+    assert jaxpr.count("Precision.HIGHEST") >= 2
+    assert "Precision.HIGH," not in jaxpr

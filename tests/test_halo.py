@@ -714,6 +714,29 @@ def test_halo_self_collision_matches_single_device(solver):
     np.testing.assert_allclose(x, np.asarray(ref.x), atol=atol)
 
 
+def test_halo_rows_pair_kernel_lowers_for_cuda(monkeypatch):
+    """On the GPU the rows run the dual-form Triton pair kernel inside
+    ``shard_map``; the whole sharded step lowers for the card here (only
+    compiling the Triton IR needs the GPU)."""
+    from softbodyunity_tpu.core.config import SelfCollisionParams
+    from softbodyunity_tpu.kernels import block_pairs
+
+    monkeypatch.setattr(block_pairs, "pair_route", lambda: "triton")
+    cfg = SimConfig(self_collision=SelfCollisionParams(
+        enabled=True, method="block", radius=0.08, stiffness=20.0,
+        cell_size=0.16, block_partners=16))
+    host = cloth_grid(16, 32, spacing=0.05, pinned=("top",),
+                      springs=cfg.springs, xpbd=cfg.xpbd, plane_height=-5.0,
+                      orientation="xy")
+    top, state = api.init(host)
+    mesh = Mesh(np.array(jax.devices()[:4]), (halo.ROWS_AXIS,))
+    fn = jax.jit(halo.make_halo_step(top, cfg, mesh), static_argnums=(5,))
+    x3, v3, im3, ph = halo.shard_grid_state(top, state, mesh)
+    text = fn.trace(x3, v3, im3, ph, cfg.dt, 2).lower(
+        lowering_platforms=("cuda",)).as_text()
+    assert "self_collision_block_pairs" in text
+
+
 def test_halo_lattice_rejects_self_collision():
     """The lattice slab paths reject self-collision loudly (the cloth-rows
     paths run it; silent physics drop is never an option)."""

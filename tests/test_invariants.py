@@ -170,11 +170,9 @@ def test_xpbd_substeps_match_iterations_at_matched_work():
     """Small Steps (Macklin et al. 2019): at the SAME total Jacobi-sweep
     count per frame (128), 128 substeps x 1 iteration settles to a
     residual at least as low as 16 substeps x 8 iterations (measured
-    7.3e-4 vs 7.6e-4 max at 240 frames) — while each 1-iteration substep
-    costs ~1/8th of an 8-iteration substep in the fused lattice kernel,
-    which is why the production 64k preset trades iterations for
-    substeps.  The half-budget point (64x1) already matches the
-    8-iteration residual to ~10% (docs/PERF.md)."""
+    7.3e-4 vs 7.6e-4 max at 240 frames) — which is why the production
+    64k preset trades iterations for substeps.  The half-budget point
+    (64x1) already matches the 8-iteration residual to ~10%."""
     host, base = presets.build("softbody_cube_xpbd_sub")
     r_iter, rv_iter = _cube_residuals(host, base, 16, 8, frames=240)
     r_sub, rv_sub = _cube_residuals(host, base, 128, 1, frames=240)

@@ -1,11 +1,10 @@
 """Voxel soft-bodies (core/topology.py::lattice_from_mesh): any closed
-surface mesh becomes a banded tet lattice that runs the fused Pallas
-lattice kernels — the Unity proxy-lattice workflow (not present in the
-reference snapshot, /root/reference/README.md:1).
+surface mesh becomes a banded tet lattice that runs the gather-free
+banded path — the Unity proxy-lattice workflow.
 
 The design invariant under test: ghost vertices keep the full raster
-order, so the edge AND tet delta groups have zero residual and
-``lattice_applicable`` accepts the shape exactly like a cube."""
+order, so the edge AND tet delta groups have zero residual, exactly like
+a cube."""
 
 import numpy as np
 import pytest
@@ -50,9 +49,6 @@ def test_voxelized_sphere_is_fully_banded():
     top, _state = api.init(host)
     assert top.offset_groups.n_residual == 0
     assert top.tet_groups.n_residual == 0
-    from softbodyunity_tpu.kernels.pallas_lattice import lattice_applicable
-
-    assert lattice_applicable(top, cfg)
 
 
 def test_surface_shell_watertight_and_outward():
@@ -130,20 +126,10 @@ def test_validation():
 
 @pytest.mark.parametrize("solver", [Solver.SEMI_IMPLICIT_EULER,
                                     Solver.VERLET, Solver.XPBD])
-def test_voxel_lattice_kernel_matches_banded(solver):
-    """Interpret-mode fused-kernel equality on a VOXEL shape: irregular
-    per-group masks (the novel part vs a full cube) must reproduce the
-    banded jnp path for every solver."""
-    from softbodyunity_tpu.kernels.pallas_lattice import (
-        lattice_applicable,
-        lattice_verlet_applicable,
-        lattice_xpbd_applicable,
-        make_lattice_step,
-        make_lattice_verlet_step,
-        make_lattice_xpbd_step,
-    )
-    from softbodyunity_tpu.solver.step import step_scan
-
+def test_voxel_lattice_matches_oracle(f64_oracle_run, solver):
+    """A VOXEL shape (irregular per-group masks, the novel part vs a full
+    cube) on the banded path against the oracle in f64, for every
+    solver; ghosts stay bit-frozen."""
     cfg = SimConfig(
         springs=SpringParams(k_structural=400.0, damping=0.4),
         collision=CollisionParams(enable_plane=True),
@@ -156,23 +142,10 @@ def test_voxel_lattice_kernel_matches_banded(solver):
     host = lattice_from_mesh(pos, tri, resolution=7, mass=0.02,
                              springs=cfg.springs, xpbd=cfg.xpbd,
                              plane_height=0.0)
-    top, state = api.init(host)
-    if solver == Solver.SEMI_IMPLICIT_EULER:
-        assert lattice_applicable(top, cfg)
-        pal = make_lattice_step(top, cfg, interpret=True)
-    elif solver == Solver.VERLET:
-        assert lattice_verlet_applicable(top, cfg)
-        pal = make_lattice_verlet_step(top, cfg, interpret=True)
-    else:
-        assert lattice_xpbd_applicable(top, cfg)
-        pal = make_lattice_xpbd_step(top, cfg, interpret=True)
-    n_sub = 48
-    s_pal = pal(state, cfg.dt, n_sub)
-    s_ref = jax.jit(lambda t, s: step_scan(t, cfg, s, cfg.dt, n_sub))(
-        top, state)
-    np.testing.assert_allclose(np.asarray(s_pal.x), np.asarray(s_ref.x),
-                               atol=3e-5)
-    # ghosts bit-frozen on the kernel path too
+    s, x, _ = f64_oracle_run(host, cfg, 3)
+    assert s.x.dtype == np.float64
+    drift = np.max(np.abs(np.asarray(s.x) - x))
+    assert drift < 1e-8, f"{solver}: f64 drift {drift:.3e}"
     ghosts = np.asarray(host.inv_mass) == 0.0
-    np.testing.assert_array_equal(
-        np.asarray(s_pal.x)[ghosts], np.asarray(state.x)[ghosts])
+    np.testing.assert_array_equal(np.asarray(s.x)[ghosts],
+                                  host.positions0[ghosts])

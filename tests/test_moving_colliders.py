@@ -98,40 +98,19 @@ def test_f64_exact_parity(backend):
     assert drift < 1e-6, f"{backend}: f64 drift {drift:.3e}"
 
 
-def test_fused_kernel_matches_stencil_interpret():
-    """The fused Euler kernel reads the velocity tails of the widened SMEM
-    rows (plane [1,4], spheres [S,7], capsules [C,10], boxes [B,18]) —
-    interpret-mode twin equality vs the stencil path."""
-    from softbodyunity_tpu.kernels.pallas_substep import make_pallas_step
-    from softbodyunity_tpu.kernels.stencil import make_stencil_step
-
-    host, cfg = _scene()
-    top, state = api.init(host)
-    pal = make_pallas_step(top, cfg, interpret=True)
-    ref = jax.jit(lambda t, s: make_stencil_step(t, cfg)(s, cfg.dt, 48))
-    s_ref = ref(top, state)
-    s_pal = pal(state, cfg.dt, 48)
-    # the moving colliders actually engaged: the cloth picked up momentum
-    assert np.abs(np.asarray(s_ref.v)).max() > 0.05
-    np.testing.assert_allclose(
-        np.asarray(s_pal.x), np.asarray(s_ref.x), atol=5e-5
-    )
-
-
-def test_tiled_kernel_matches_stencil_interpret():
-    """Row-tiled Euler kernel twin with moving colliders."""
-    from softbodyunity_tpu.kernels.pallas_tiled import make_tiled_step
-    from softbodyunity_tpu.kernels.stencil import make_stencil_step
+def test_f64_parity_16x16_stencil(f64_oracle_run):
+    """The moving-collider scene on a 16x16 grid (the stencil path)
+    against the oracle in f64."""
+    from softbodyunity_tpu.kernels import dispatch
 
     host, cfg = _scene(nx=16, ny=16)
-    top, state = api.init(host)
-    til = make_tiled_step(top, cfg, tile=8, interpret=True)
-    ref = jax.jit(lambda t, s: make_stencil_step(t, cfg)(s, cfg.dt, 24))
-    s_ref = ref(top, state)
-    s_til = til(state, cfg.dt, 24)
-    np.testing.assert_allclose(
-        np.asarray(s_til.x), np.asarray(s_ref.x), atol=5e-5
-    )
+    top, _ = api.init(host)
+    assert dispatch.maybe_fast_step(top, cfg) is not None
+    s, x, _ = f64_oracle_run(host, cfg, 2)
+    # the moving colliders actually engaged: the cloth picked up momentum
+    assert np.abs(np.asarray(s.v)).max() > 0.05
+    drift = np.max(np.abs(np.asarray(s.x) - x))
+    assert drift < 1e-8, f"f64 drift {drift:.3e}"
 
 
 def test_conveyor_plane_carries_cloth():

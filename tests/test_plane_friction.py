@@ -64,7 +64,7 @@ def _slide(host, cfg, n_frames=50, dtype=jnp.float32):
 @pytest.mark.parametrize("grid", [True, False])
 def test_sliding_cloth_decelerates(solver, grid):
     """friction > 0 stops a sliding cloth on every solver and path
-    (grid=True exercises stencil/pallas-eligible routing, False the
+    (grid=True exercises the stencil routing, False the
     banded/jnp path); friction = 0 keeps it sliding."""
     host, cfg = _sliding_scene(solver, friction=0.3, grid=grid)
     s = _slide(host, cfg)

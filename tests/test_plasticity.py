@@ -156,133 +156,53 @@ def test_plastic_plus_tearing_f64_parity(solver):
     assert scale_o.max() > 1.0 + 1e-6, "nothing yielded"
 
 
-@pytest.mark.parametrize("solver", SOLVERS)
-@pytest.mark.parametrize("with_tear", [False, True])
-def test_fused_kernel_plasticity_matches_stencil(solver, with_tear):
-    """The fused Pallas kernels carry rest-scale planes through the
-    VMEM-resident substep loop (optionally together with tear liveness
-    planes); interpret-mode twin equality vs the stencil path including
-    identical scale planes."""
-    from softbodyunity_tpu.kernels.pallas_substep import (
-        make_pallas_step,
-        make_pallas_verlet_step,
-    )
-    from softbodyunity_tpu.kernels.pallas_xpbd import make_pallas_xpbd_step
-    from softbodyunity_tpu.kernels.stencil import make_stencil_step
-
-    host, cfg = _scene(solver)
-    if with_tear:
-        cfg = cfg.replace(tear=TearParams(enabled=True, strain_limit=0.12))
-    top, state = api.init(host)
-    state = api.ensure_tear_state(top, cfg, state)
-    state = api.ensure_plastic_state(top, cfg, state)
-    maker = {
-        Solver.SEMI_IMPLICIT_EULER: make_pallas_step,
-        Solver.VERLET: make_pallas_verlet_step,
-        Solver.XPBD: make_pallas_xpbd_step,
-    }[solver]
-    pal = maker(top, cfg, interpret=True)
-    ref = jax.jit(lambda t, s: make_stencil_step(t, cfg)(s, cfg.dt, 64))
-    s_ref = ref(top, state)
-    s_pal = pal(state, cfg.dt, 64)
-    np.testing.assert_allclose(
-        np.asarray(s_pal.rest_scale), np.asarray(s_ref.rest_scale),
-        atol=1e-6,
-    )
-    assert float(np.asarray(s_ref.rest_scale).max()) > 1.001, "no flow"
-    if with_tear:
-        np.testing.assert_array_equal(
-            np.asarray(s_pal.edge_alive), np.asarray(s_ref.edge_alive)
-        )
-    np.testing.assert_allclose(
-        np.asarray(s_pal.x), np.asarray(s_ref.x), atol=5e-5
-    )
+# plastic grids beyond test_f64_exact_parity's scene: with tearing at the
+# stronger creep, and taller grids (multiples of 8 and 16 rows) with and
+# without tearing, held to the oracle on the stencil path
+SERVED = ([(sv, 12, True) for sv in SOLVERS]
+          + [(sv, 32 if sv == Solver.XPBD else 24, tear)
+             for sv in SOLVERS for tear in (False, True)])
 
 
-@pytest.mark.parametrize("solver", SOLVERS)
-@pytest.mark.parametrize("with_tear", [False, True])
-def test_tiled_kernel_plasticity_matches_stencil(solver, with_tear):
-    """The row-tiled kernels (grids beyond the whole-VMEM gate) carry
-    rest-scale planes like tear liveness planes: per-launch halo DMA,
-    plastic-flow-at-start with a first-launch flag, end-of-frame update
-    in the wrapper; interpret-mode twin equality vs the stencil path
-    including identical scale (and tear) planes."""
-    from softbodyunity_tpu.kernels.pallas_tiled import (
-        make_tiled_step,
-        make_tiled_verlet_step,
-        make_tiled_xpbd_step,
-    )
-    from softbodyunity_tpu.kernels.stencil import make_stencil_step
+@pytest.mark.parametrize("solver,ny,with_tear", SERVED)
+def test_f64_parity_served_grids(f64_oracle_run, solver, ny, with_tear):
+    from softbodyunity_tpu.kernels import dispatch
 
-    # XPBD halo: reach 2 x 4 iters + 2 feat-pad rows -> xh=16, tile>=16
-    ny = 32 if solver == Solver.XPBD else 24
-    tile = 16 if solver == Solver.XPBD else 8
     host, cfg = _scene(solver, nx=8, ny=ny)
     if with_tear:
         cfg = cfg.replace(tear=TearParams(enabled=True, strain_limit=0.12))
-    top, state = api.init(host)
-    state = api.ensure_tear_state(top, cfg, state)
-    state = api.ensure_plastic_state(top, cfg, state)
-    maker = {
-        Solver.SEMI_IMPLICIT_EULER: make_tiled_step,
-        Solver.VERLET: make_tiled_verlet_step,
-        Solver.XPBD: make_tiled_xpbd_step,
-    }[solver]
-    pal = maker(top, cfg, tile=tile, interpret=True)
-    ref = jax.jit(lambda t, s: make_stencil_step(t, cfg)(s, cfg.dt, 64))
-    s_ref = ref(top, state)
-    s_pal = pal(state, cfg.dt, 64)
-    np.testing.assert_allclose(
-        np.asarray(s_pal.rest_scale), np.asarray(s_ref.rest_scale),
-        atol=1e-6,
-    )
-    assert float(np.asarray(s_ref.rest_scale).max()) > 1.001, "no flow"
-    if with_tear:
-        np.testing.assert_array_equal(
-            np.asarray(s_pal.edge_alive), np.asarray(s_ref.edge_alive)
-        )
-    np.testing.assert_allclose(
-        np.asarray(s_pal.x), np.asarray(s_ref.x), atol=5e-5
-    )
-
-
-def test_dispatch_plasticity_over_cap_routes_to_tiled(monkeypatch, capsys):
-    """A plastic grid past the (halved) whole-VMEM cap must route to the
-    row-tiled kernel — not silently degrade to the stencil path."""
-    from softbodyunity_tpu.kernels import dispatch, pallas_substep
-
-    host, cfg = _scene(Solver.SEMI_IMPLICIT_EULER, ny=24)  # 192 verts
     top, _ = api.init(host)
-    monkeypatch.setattr(pallas_substep, "MAX_VMEM_VERTICES", 256)
-    dispatch._warned.clear()
-    fn = dispatch.maybe_fast_step(top, cfg, "pallas")  # 192 > 256//2
-    assert fn is not None
-    assert fn.__module__ == "softbodyunity_tpu.kernels.pallas_tiled"
-    assert "falling back" not in capsys.readouterr().err
+    assert dispatch.maybe_fast_step(top, cfg) is not None
+    s, x, extras = f64_oracle_run(host, cfg, 4)
+    np.testing.assert_allclose(np.asarray(s.rest_scale),
+                               extras["rest_scale"], rtol=0, atol=1e-9)
+    assert extras["rest_scale"].max() > 1.001, "no flow"
+    if with_tear:
+        np.testing.assert_array_equal(np.asarray(s.edge_alive),
+                                      extras["alive"])
+    drift = np.max(np.abs(np.asarray(s.x) - x))
+    assert drift < 1e-8, f"{solver} ny={ny}: f64 drift {drift:.3e}"
 
 
-def test_dispatch_routes_plasticity(capsys):
-    """Plastic grid scenes run on the fused Pallas kernels (rest scales as
-    per-offset planes in the VMEM carry); irregular meshes take the exact
-    jnp gather path, loudly when pallas was requested."""
+def test_dispatch_routes_plasticity():
+    """Plastic grid scenes run on the stencil path (rest scales as
+    per-offset planes); irregular meshes take the exact jnp gather
+    path."""
     from softbodyunity_tpu.core.topology import from_triangle_mesh
     from softbodyunity_tpu.kernels import dispatch
 
     host, cfg = _scene(Solver.SEMI_IMPLICIT_EULER)
     top, _ = api.init(host)
-    dispatch._warned.clear()
-    fn = dispatch.maybe_fast_step(top, cfg, "pallas")
+    fn = dispatch.maybe_fast_step(top, cfg)
     assert fn is not None
-    assert fn.__module__ == "softbodyunity_tpu.kernels.pallas_substep"
-    assert capsys.readouterr().err == ""
+    assert fn.__module__ == "softbodyunity_tpu.kernels.stencil"
     # irregular mesh: no grid planes -> jnp gather path
     verts = np.asarray(host.positions0)
     tris = np.asarray(host.triangles)
     ihost = from_triangle_mesh(verts, tris, springs=cfg.springs,
                                xpbd=cfg.xpbd)
     itop, _ = api.init(ihost)
-    assert dispatch.maybe_fast_step(itop, cfg, "pallas") is None
-    assert "jnp" in capsys.readouterr().err
+    assert dispatch.maybe_fast_step(itop, cfg) is None
 
 
 def test_batched_plasticity_consistency():

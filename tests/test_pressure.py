@@ -203,12 +203,12 @@ def test_pressure_gates_fast_paths_off():
 
     host, cfg = _scene(Solver.SEMI_IMPLICIT_EULER)
     top, _ = api.init(host)
-    assert dispatch.maybe_fast_step(top, cfg, "pallas") is None
+    assert dispatch.maybe_fast_step(top, cfg) is None
     # grid cloth with pressure enabled but NO pressure bodies keeps its
     # fast path (the force is identically zero)
     grid = cloth_grid(16, 16, spacing=0.05, shear=True, bend=True)
     gtop, _ = api.init(grid)
-    assert dispatch.maybe_fast_step(gtop, cfg, "stencil") is not None
+    assert dispatch.maybe_fast_step(gtop, cfg) is not None
 
 
 def test_batched_balloons_match_single():

@@ -146,15 +146,6 @@ def test_f64_exact_parity(solver, backend):
     assert drift < bound, f"{solver} {backend}: f64 drift {drift:.3e}"
 
 
-def test_pallas_request_degrades_loudly_not_wrongly():
-    """backend='pallas' with an SDF collider falls back (fused kernels gate
-    SDF out) but still computes the oracle semantics exactly."""
-    host, cfg = _scene(Solver.SEMI_IMPLICIT_EULER)
-    cfg = cfg.replace(backend="pallas")
-    got, want = _run_pair(host, cfg, n_steps=20, dtype=jnp.float64)
-    assert np.max(np.abs(got - want)) < 1e-6
-
-
 @pytest.mark.parametrize("solver", SOLVERS)
 def test_no_penetration_after_settle(solver):
     """f32 long-horizon contact invariant: after dropping onto a baked

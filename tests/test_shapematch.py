@@ -266,8 +266,8 @@ def test_shape_match_gates_fast_paths_off():
                                                  shear=True, bend=True))
     ctop, _ = api.init(clustered)
     gtop, _ = api.init(grid)
-    assert dispatch.maybe_fast_step(ctop, cfg, "pallas") is None
-    assert dispatch.maybe_fast_step(gtop, cfg, "stencil") is not None
+    assert dispatch.maybe_fast_step(ctop, cfg) is None
+    assert dispatch.maybe_fast_step(gtop, cfg) is not None
 
 
 def test_batched_jellies_match_single():
@@ -369,7 +369,7 @@ def test_coupled_jelly_rests_on_ball():
 
 
 def test_onehot_mxu_twin_matches_segment_path(monkeypatch):
-    """The MXU one-hot formulation == the segment_sum path to f32
+    """The one-hot matmul formulation == the segment_sum path to f32
     rounding (same math, different reduction order), quats included."""
     from softbodyunity_tpu.solver import shapematch
 
@@ -382,7 +382,7 @@ def test_onehot_mxu_twin_matches_segment_path(monkeypatch):
         rng.normal(0, 0.05, state.x.shape).astype(np.float32))
     q = jnp.asarray(_identity_quats(host.n_clusters), jnp.float32)
     dx1, q1 = shapematch.shape_match_dx(top, cfg, x, q)
-    monkeypatch.setattr(shapematch, "MXU_ONEHOT_MAX_ELEMS", 0)
+    monkeypatch.setattr(shapematch, "ONEHOT_MAX_ELEMS", 0)
     dx2, q2 = shapematch.shape_match_dx(top, cfg, x, q)
     assert host.positions0.shape[0] * host.n_clusters \
         <= 2 ** 24, "scene unexpectedly big"
@@ -522,3 +522,32 @@ def test_kron_statics_accept_tet_cube_cells():
     assert kr is not None
     nx, ny, nz = kr["dims"]
     assert (nx, ny, nz) == (8, 8, 8)
+
+
+@pytest.mark.parametrize("form", ["onehot", "kron"])
+def test_cluster_contractions_ask_for_highest(form):
+    """Every shape-matching contraction runs at HIGHEST: at HIGH the GPU
+    may use TF32, which cost the Kronecker form ~1% of the correction on
+    the card (PERF.md)."""
+    from softbodyunity_tpu.core.topology import (
+        enable_shape_matching, icosphere_mesh, lattice_from_mesh)
+    from softbodyunity_tpu.solver import shapematch as sm
+
+    cfg = SimConfig(shape_match=ShapeMatchParams(enabled=True))
+    pos, tri = icosphere_mesh(radius=0.3, subdivisions=1)
+    host = enable_shape_matching(
+        lattice_from_mesh(pos, tri, resolution=8, plane_height=-1.0),
+        cell_size=0.2)
+    top, state = api.init(host)
+    state = api.ensure_shapematch_state(top, cfg, state)
+    if form == "onehot":
+        fn = lambda x, q: sm.shape_match_dx(top, cfg, x, q)
+        args = (state.x, state.cluster_quat)
+    else:
+        kr = sm.shape_match_kron_statics(top)
+        fn = lambda x, q: sm.shape_match_dx_kron(cfg, kr, x.T, q)
+        args = (state.x, state.cluster_quat)
+    jaxpr = str(jax.make_jaxpr(fn)(*args))
+    assert jaxpr.count("dot_general") >= 3
+    assert "Precision.HIGH," not in jaxpr and "Precision.HIGH)" not in jaxpr
+    assert "precision=None" not in jaxpr

@@ -1,4 +1,4 @@
-"""Stencil fast-path equivalence (SURVEY.md §1b TPU-idiomatic redesign):
+"""Stencil fast-path equivalence (SURVEY.md §1b):
 the shift-based grid formulation must reproduce the edge-list path."""
 
 import numpy as np

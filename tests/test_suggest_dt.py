@@ -1,6 +1,6 @@
 """api.suggest_dt: the explicit-integration stability helper (Gershgorin
-bound on the spring network's stiffest mode; docs/PERF.md "Stability
-note" records the silent frame-12 NaN blow-up this prevents)."""
+bound on the spring network's stiffest mode; PERF.md records the silent
+frame-12 NaN blow-up this prevents)."""
 
 import numpy as np
 

@@ -129,19 +129,17 @@ def test_huge_strain_limit_identical_to_disabled():
 
 
 def test_dispatch_routes_tearing():
-    """Grid tearing scenes get a fast path under both backends (fused
-    Pallas kernels / XLA stencil, liveness planes either way); non-grid
-    tearing falls to the jnp gather path."""
+    """Grid tearing scenes take the stencil path (liveness planes);
+    non-grid tearing falls to the jnp gather path."""
     from softbodyunity_tpu.core.topology import tet_cube
     from softbodyunity_tpu.kernels import dispatch
 
     host, cfg = _scene(Solver.SEMI_IMPLICIT_EULER)
     top, _ = api.init(host)
-    assert dispatch.maybe_fast_step(top, cfg, "pallas") is not None
-    assert dispatch.maybe_fast_step(top, cfg, "stencil") is not None
+    assert dispatch.maybe_fast_step(top, cfg) is not None
     cube = tet_cube(4, spacing=0.05, springs=cfg.springs, xpbd=cfg.xpbd)
     ctop, _ = api.init(cube)
-    assert dispatch.maybe_fast_step(ctop, cfg, "pallas") is None
+    assert dispatch.maybe_fast_step(ctop, cfg) is None
 
 
 def test_batched_tearing_consistency():
@@ -207,90 +205,22 @@ def test_halo_lattice_rejects_tearing():
         halo.make_halo_lattice_step(ctop, cfg, mesh)
 
 
-@pytest.mark.parametrize("solver", SOLVERS)
-def test_fused_kernel_tearing_matches_stencil(solver):
-    """The fused Pallas kernels carry liveness planes through the
-    VMEM-resident substep loop; interpret-mode twin equality vs the stencil
-    path including identical tear masks."""
-    from softbodyunity_tpu.kernels.pallas_substep import (
-        make_pallas_step,
-        make_pallas_verlet_step,
-    )
-    from softbodyunity_tpu.kernels.pallas_xpbd import make_pallas_xpbd_step
-    from softbodyunity_tpu.kernels.stencil import make_stencil_step
-
-    host, cfg = _scene(solver)
-    top, state = api.init(host)
-    state = api.ensure_tear_state(top, cfg, state)
-    maker = {
-        Solver.SEMI_IMPLICIT_EULER: make_pallas_step,
-        Solver.VERLET: make_pallas_verlet_step,
-        Solver.XPBD: make_pallas_xpbd_step,
-    }[solver]
-    pal = maker(top, cfg, interpret=True)
-    ref = jax.jit(lambda t, s: make_stencil_step(t, cfg)(s, cfg.dt, 64))
-    s_ref = ref(top, state)
-    s_pal = pal(state, cfg.dt, 64)
-    np.testing.assert_array_equal(
-        np.asarray(s_pal.edge_alive), np.asarray(s_ref.edge_alive)
-    )
-    assert float(np.asarray(s_ref.edge_alive).min()) == 0.0, "nothing tore"
-    np.testing.assert_allclose(
-        np.asarray(s_pal.x), np.asarray(s_ref.x), atol=5e-5
-    )
-
-
-@pytest.mark.parametrize("solver", SOLVERS)
-def test_tiled_kernel_tearing_matches_stencil(solver):
-    """The row-tiled kernels (grids beyond the whole-VMEM gate) refresh
-    liveness planes across tiles by per-launch halo DMA and tear at launch
-    start (first-launch flag + end-of-frame tear in the wrapper);
-    interpret-mode twin equality vs the stencil path including identical
-    tear masks."""
-    from softbodyunity_tpu.kernels.pallas_tiled import (
-        make_tiled_step,
-        make_tiled_verlet_step,
-        make_tiled_xpbd_step,
-    )
-    from softbodyunity_tpu.kernels.stencil import make_stencil_step
-
-    # XPBD halo: reach 2 x 4 iters + 2 tear-pad rows -> xh=16, tile>=16
-    ny = 32 if solver == Solver.XPBD else 24
-    tile = 16 if solver == Solver.XPBD else 8
+# taller grids (heights that are multiples of 8 and 16 rows), held to the
+# oracle on the stencil path with identical tear masks
+@pytest.mark.parametrize("solver,ny", [(Solver.SEMI_IMPLICIT_EULER, 24),
+                                       (Solver.VERLET, 24),
+                                       (Solver.XPBD, 32)])
+def test_f64_parity_tall_grids(f64_oracle_run, solver, ny):
     host, cfg = _scene(solver, nx=8, ny=ny)
-    top, state = api.init(host)
-    state = api.ensure_tear_state(top, cfg, state)
-    maker = {
-        Solver.SEMI_IMPLICIT_EULER: make_tiled_step,
-        Solver.VERLET: make_tiled_verlet_step,
-        Solver.XPBD: make_tiled_xpbd_step,
-    }[solver]
-    pal = maker(top, cfg, tile=tile, interpret=True)
-    ref = jax.jit(lambda t, s: make_stencil_step(t, cfg)(s, cfg.dt, 64))
-    s_ref = ref(top, state)
-    s_pal = pal(state, cfg.dt, 64)
-    np.testing.assert_array_equal(
-        np.asarray(s_pal.edge_alive), np.asarray(s_ref.edge_alive)
-    )
-    assert float(np.asarray(s_ref.edge_alive).min()) == 0.0, "nothing tore"
-    np.testing.assert_allclose(
-        np.asarray(s_pal.x), np.asarray(s_ref.x), atol=5e-5
-    )
-
-
-def test_dispatch_tearing_over_cap_routes_to_tiled(monkeypatch, capsys):
-    """A tearing grid past the (halved) whole-VMEM cap must route to the
-    row-tiled kernel — not silently degrade to the stencil path."""
-    from softbodyunity_tpu.kernels import dispatch, pallas_substep
-
-    host, cfg = _scene(Solver.SEMI_IMPLICIT_EULER, ny=24)  # 192 verts
     top, _ = api.init(host)
-    monkeypatch.setattr(pallas_substep, "MAX_VMEM_VERTICES", 256)
-    dispatch._warned.clear()
-    fn = dispatch.maybe_fast_step(top, cfg, "pallas")  # 192 > 256//2
-    assert fn is not None
-    assert fn.__module__ == "softbodyunity_tpu.kernels.pallas_tiled"
-    assert "falling back" not in capsys.readouterr().err
+    from softbodyunity_tpu.kernels import dispatch
+
+    assert dispatch.maybe_fast_step(top, cfg) is not None
+    s, x, extras = f64_oracle_run(host, cfg, 4)
+    np.testing.assert_array_equal(np.asarray(s.edge_alive), extras["alive"])
+    assert extras["alive"].min() == 0.0, "nothing tore"
+    drift = np.max(np.abs(np.asarray(s.x) - x))
+    assert drift < 1e-8, f"{solver} ny={ny}: f64 drift {drift:.3e}"
 
 
 def test_diagnostics_reports_torn_edges():
@@ -335,30 +265,6 @@ def test_wind_plus_tearing_f64_parity(solver):
     np.testing.assert_array_equal(np.asarray(s.edge_alive), alive_o)
     drift = np.max(np.abs(np.asarray(s.x) - x))
     assert drift < 1e-6, f"{solver}: wind+tear f64 drift {drift:.3e}"
-
-
-def test_wind_plus_tearing_fused_kernel_matches_stencil():
-    """The fused kernel composes wind lift (roll normals) with tearing
-    (liveness-plane carry) in one VMEM-resident program."""
-    from softbodyunity_tpu.core.config import WindParams
-    from softbodyunity_tpu.kernels.pallas_substep import make_pallas_step
-    from softbodyunity_tpu.kernels.stencil import make_stencil_step
-
-    host, cfg = _scene(Solver.SEMI_IMPLICIT_EULER, strain_limit=0.04)
-    cfg = cfg.replace(wind=WindParams(velocity=(2.5, 0.0, 1.0),
-                                      drag=0.3, lift=0.6))
-    top, state = api.init(host)
-    state = api.ensure_tear_state(top, cfg, state)
-    pal = make_pallas_step(top, cfg, interpret=True)
-    ref = jax.jit(lambda t, s: make_stencil_step(t, cfg)(s, cfg.dt, 64))
-    s_ref = ref(top, state)
-    s_pal = pal(state, cfg.dt, 64)
-    np.testing.assert_array_equal(
-        np.asarray(s_pal.edge_alive), np.asarray(s_ref.edge_alive)
-    )
-    np.testing.assert_allclose(
-        np.asarray(s_pal.x), np.asarray(s_ref.x), atol=5e-5
-    )
 
 
 @pytest.mark.parametrize("solver", SOLVERS)

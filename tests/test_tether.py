@@ -286,7 +286,7 @@ def test_f64_parity_coupled_projection(solver):
 
 def test_dispatch_gates_fast_paths_off():
     """Motion-constrained scenes must never silently drop the clamp: the
-    fused kernels and the stencil twin refuse, the jnp path runs it."""
+    stencil path refuses, the jnp path runs it."""
     from softbodyunity_tpu.kernels import dispatch
 
     host = cloth_grid(16, 16, spacing=0.05, shear=True, bend=True)
@@ -294,13 +294,12 @@ def test_dispatch_gates_fast_paths_off():
     top, _ = api.init(host)
     cfg_on = SimConfig(motion=MotionConstraintParams(enabled=True))
     cfg_off = SimConfig()
-    assert dispatch.maybe_fast_step(top, cfg_on, "pallas") is None
-    assert dispatch.maybe_fast_step(top, cfg_on, "stencil") is None
-    assert dispatch.maybe_fast_step(top, cfg_off, "pallas") is not None
+    assert dispatch.maybe_fast_step(top, cfg_on) is None
+    assert dispatch.maybe_fast_step(top, cfg_off) is not None
     # enabled in cfg but no arrays on the topology: the feature is off
     plain, _ = api.init(cloth_grid(16, 16, spacing=0.05, shear=True,
                                    bend=True))
-    assert dispatch.maybe_fast_step(plain, cfg_on, "pallas") is not None
+    assert dispatch.maybe_fast_step(plain, cfg_on) is not None
 
 
 def test_halo_gates():

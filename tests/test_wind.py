@@ -1,7 +1,7 @@
 """Wind / aerodynamic forcing tests (WindParams: isotropic drag +
 normal-projected lift; oracle/reference.py wind_forces is the binding
-definition).  Device paths — general jnp, stencil, fused Pallas kernels
-(grid normals as rolls) — must match the oracle exactly in f64."""
+definition).  Device paths — general jnp and stencil (grid normals as
+rolls) — must match the oracle exactly in f64."""
 
 import numpy as np
 import pytest
@@ -70,33 +70,6 @@ def test_f64_exact_parity(solver, backend):
     assert drift < 1e-6, f"{solver} {backend}: f64 drift {drift:.3e}"
 
 
-@pytest.mark.parametrize("solver", SOLVERS)
-def test_fused_kernel_wind_matches_stencil(solver):
-    """The fused Pallas kernels compute wind lift with the same roll-based
-    grid normals; interpret-mode twin equality vs the stencil path."""
-    from softbodyunity_tpu.kernels.pallas_substep import (
-        make_pallas_step,
-        make_pallas_verlet_step,
-    )
-    from softbodyunity_tpu.kernels.pallas_xpbd import make_pallas_xpbd_step
-    from softbodyunity_tpu.kernels.stencil import make_stencil_step
-
-    host, cfg = _scene(solver)
-    top, state = api.init(host)
-    maker = {
-        Solver.SEMI_IMPLICIT_EULER: make_pallas_step,
-        Solver.VERLET: make_pallas_verlet_step,
-        Solver.XPBD: make_pallas_xpbd_step,
-    }[solver]
-    pal = maker(top, cfg, interpret=True)
-    ref = jax.jit(lambda t, s: make_stencil_step(t, cfg)(s, cfg.dt, 64))
-    s_ref = ref(top, state)
-    s_pal = pal(state, cfg.dt, 64)
-    np.testing.assert_allclose(
-        np.asarray(s_pal.x), np.asarray(s_ref.x), atol=5e-5
-    )
-
-
 def test_wind_blows_cloth_downwind():
     """Physical sanity: a hanging cloth under lateral wind deflects in the
     wind direction and keeps fluttering (finite, nonzero velocity)."""
@@ -120,14 +93,10 @@ def test_drag_only_wind_no_triangles_ok():
     assert np.isfinite(np.asarray(state.x)).all()
 
 
-def test_lattice_drag_wind_matches_banded_jnp():
-    """The fused lattice kernel supports drag-only wind (lift gates off to
-    the exact jnp path); interpret-mode twin equality."""
-    from softbodyunity_tpu.kernels.pallas_lattice import (
-        lattice_applicable,
-        make_lattice_step,
-    )
-    from softbodyunity_tpu.solver.step import step_scan
+def test_lattice_drag_wind_matches_oracle(f64_oracle_run):
+    """Drag-only wind on a tet lattice (the banded jnp path) matches the
+    oracle in f64, and the wind pushes the cube downwind."""
+    from softbodyunity_tpu.kernels import dispatch
 
     cfg = SimConfig(
         wind=WindParams(velocity=(3.0, 0.0, 0.0), drag=0.5, lift=0.0),
@@ -137,30 +106,21 @@ def test_lattice_drag_wind_matches_banded_jnp():
     )
     host = tet_cube(5, spacing=0.05, springs=cfg.springs, xpbd=cfg.xpbd,
                     plane_height=0.0, origin=(0.0, 0.05, 0.0))
-    top, state = api.init(host)
-    assert lattice_applicable(top, cfg)
-    pal = make_lattice_step(top, cfg, interpret=True)
-    ref = jax.jit(lambda t, s: step_scan(t, cfg, s, cfg.dt, 48))
-    s_ref = ref(top, state)
-    s_pal = pal(state, cfg.dt, 48)
-    np.testing.assert_allclose(
-        np.asarray(s_pal.x), np.asarray(s_ref.x), atol=2e-5
-    )
-    # wind actually pushed the cube downwind
-    assert np.asarray(s_ref.x)[:, 0].mean() > 0.1
+    top, _ = api.init(host)
+    assert dispatch.maybe_fast_step(top, cfg) is None
+    assert top.offset_groups.n_residual == 0       # fully banded
+    s, x, _ = f64_oracle_run(host, cfg, 3)
+    drift = np.max(np.abs(np.asarray(s.x) - x))
+    assert drift < 1e-8, f"f64 drift {drift:.3e}"
+    assert x[:, 0].mean() > 0.1
 
 
 @pytest.mark.parametrize("solver", SOLVERS)
-def test_tiled_kernel_wind_lift_matches_stencil(solver):
-    """The row-tiled kernels compute full wind (drag + lift) with window
-    rolls and global cell masks; interpret-mode twin equality."""
-    from softbodyunity_tpu.kernels.pallas_tiled import (
-        make_tiled_step,
-        make_tiled_verlet_step,
-        make_tiled_xpbd_step,
-    )
+def test_f64_parity_tall_contact_free_grid(f64_oracle_run, solver):
+    """Full wind (drag + lift) on a taller 16x24 grid with 3 XPBD
+    iterations, contact-free, on the stencil path against the oracle."""
     from softbodyunity_tpu.core.config import XPBDParams
-    from softbodyunity_tpu.kernels.stencil import make_stencil_step
+    from softbodyunity_tpu.kernels import dispatch
 
     cfg = SimConfig(
         solver=solver,
@@ -169,27 +129,16 @@ def test_tiled_kernel_wind_lift_matches_stencil(solver):
         collision=CollisionParams(enable_plane=True),
         global_damping=0.2,
     )
-    # contact-free scene: a vertex within one f32 ulp of the plane clamps
-    # on one path and not the other, turning LSB noise into O(impulse)
-    # divergence (same rationale as test_halo's contact-free XPBD scene)
     host = cloth_grid(
         16, 24, spacing=0.05, shear=True, bend=True, pinned=("tl", "tr"),
         springs=cfg.springs, xpbd=cfg.xpbd, plane_height=-3.0,
         orientation="xy",
     )
-    top, state = api.init(host)
-    maker = {
-        Solver.SEMI_IMPLICIT_EULER: make_tiled_step,
-        Solver.VERLET: make_tiled_verlet_step,
-        Solver.XPBD: make_tiled_xpbd_step,
-    }[solver]
-    til = maker(top, cfg, tile=8, interpret=True)
-    ref = jax.jit(lambda t, s: make_stencil_step(t, cfg)(s, cfg.dt, 48))
-    s_ref = ref(top, state)
-    s_til = til(state, cfg.dt, 48)
-    np.testing.assert_allclose(
-        np.asarray(s_til.x), np.asarray(s_ref.x), atol=5e-5
-    )
+    top, _ = api.init(host)
+    assert dispatch.maybe_fast_step(top, cfg) is not None
+    s, x, _ = f64_oracle_run(host, cfg, 3)
+    drift = np.max(np.abs(np.asarray(s.x) - x))
+    assert drift < 1e-8, f"{solver}: f64 drift {drift:.3e}"
 
 
 @pytest.mark.parametrize("solver", SOLVERS)
@@ -275,4 +224,4 @@ def test_lattice_lift_gates_to_jnp():
     )
     host = tet_cube(4, spacing=0.05, springs=cfg.springs, xpbd=cfg.xpbd)
     top, _ = api.init(host)
-    assert dispatch.maybe_fast_step(top, cfg, "pallas") is None
+    assert dispatch.maybe_fast_step(top, cfg) is None
